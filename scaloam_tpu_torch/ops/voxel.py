@@ -1,0 +1,292 @@
+"""Voxel-grid downsampling, compaction and brute-force 2-NN
+(counterpart of scaloam_tpu/ops/voxel.py).
+
+The reference's one-hot-matmul payload selects, bf16 splits, blocked scans
+and TPU tile tuning are not carried over: winners are index gathers and
+prefix sums are torch.cumsum. Distances are direct differences. Sorts are
+stable so equal keys keep index order, as the reference's CPU sort does;
+ties in every top-k go to the lowest index.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+BIG = 1e30  # sentinel distance for masked pairs
+_INT32_MAX = 2**31 - 1
+
+
+def _zero_of(a: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=a.dtype, device=a.device)
+
+
+def compact(mask: torch.Tensor, capacity: int, *arrays: torch.Tensor):
+    """Stable-compact valid rows to the front, truncated/padded to capacity.
+    Returns (new_mask, *compacted_arrays); rows past the valid ones are 0."""
+    n = mask.shape[0]
+    iota = torch.arange(n, device=mask.device)
+    key = torch.where(mask, iota, n + iota)
+    order = torch.argsort(key)  # keys are unique
+    pad = max(0, capacity - n)
+    new_mask = key[order][:capacity] < n
+    if pad:
+        new_mask = torch.cat([new_mask, new_mask.new_zeros(pad)])
+    outs = []
+    for a in arrays:
+        got = a[order][:capacity]
+        if pad:
+            got = torch.cat([got, got.new_zeros((pad,) + got.shape[1:])])
+        m = new_mask.reshape(new_mask.shape + (1,) * (got.ndim - 1))
+        outs.append(torch.where(m, got, _zero_of(got)))
+    return (new_mask,) + tuple(outs)
+
+
+def _shift_up(a: torch.Tensor, w: int, dim: int, fill=0) -> torch.Tensor:
+    """a shifted towards lower indices by w along dim, `fill` at the end."""
+    pad_shape = list(a.shape)
+    pad_shape[dim] = w
+    return torch.cat(
+        [a.narrow(dim, w, a.shape[dim] - w),
+         torch.full(pad_shape, fill, dtype=a.dtype, device=a.device)],
+        dim=dim,
+    )
+
+
+def _window_sums(vals, sn, dim: int, mean_window: int):
+    """Segmented sum over the next <= mean_window members of each run by
+    log-step doubling (sn[i]: i+1 continues i's run). Returns (acc, cnt)."""
+    acc = vals
+    cnt = torch.ones(sn.shape, dtype=torch.float32, device=sn.device)
+    f = sn
+    step = 1
+    while step < mean_window:
+        acc = acc + torch.where(f[..., None], _shift_up(acc, step, dim), 0.0)
+        cnt = cnt + torch.where(f, _shift_up(cnt, step, dim), 0.0)
+        if 2 * step < mean_window:
+            f = f & _shift_up(f, step, dim, fill=False)
+        step *= 2
+    return acc, cnt
+
+
+def voxel_downsample_packed(
+    xyz: torch.Tensor,
+    mask: torch.Tensor,
+    voxel_size: float,
+    capacity: int,
+    extra: Optional[torch.Tensor] = None,
+    xy_bits: int = 10,
+    z_bits: int = 9,
+    shell_bits: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Centroid voxel filter on one packed int32 key [shell | cx | cy | cz]
+    (coords centred on the masked centroid and clipped to the bit range).
+    Each voxel averages its first 8 points in sort order. shell_bits > 0
+    orders voxels by a Chebyshev-distance shell so that the farthest are
+    dropped first when the voxel count exceeds `capacity`.
+    Returns (xyz [min(capacity, N), 3], mask, extra or None)."""
+    n = xyz.shape[0]
+    coords = torch.floor(xyz / voxel_size).to(torch.int32)
+    denom = torch.clamp(torch.sum(mask.to(torch.int32)), min=1)
+    center = torch.sum(torch.where(mask[:, None], coords, 0), dim=0) // denom
+    c = (coords - center[None, :]).to(torch.int32)
+
+    def clipb(v, bits):
+        half = 1 << (bits - 1)
+        return torch.clamp(v + half, 0, (1 << bits) - 1)
+
+    key = clipb(c[:, 0], xy_bits)
+    key = (key << xy_bits) | clipb(c[:, 1], xy_bits)
+    if z_bits > 0:
+        key = (key << z_bits) | clipb(c[:, 2], z_bits)
+    used_bits = xy_bits * 2 + z_bits
+    if shell_bits > 0:
+        cheb = torch.amax(torch.abs(c), dim=-1)
+        base = 1 << (xy_bits - 4)  # first shell radius: 1/8 of half-range
+        ratio = torch.clamp(cheb, min=1).to(torch.float32) / base
+        # log2 as log(x)/log(2), the reference's formulation
+        log2 = torch.log(ratio) / torch.log(torch.tensor(2.0, device=xyz.device))
+        shell = torch.clamp(
+            torch.ceil(log2 + 1.0).to(torch.int32), 0, (1 << shell_bits) - 1
+        )
+        key = (shell << used_bits) | key
+    key = torch.where(mask, key, _INT32_MAX).to(torch.int32)
+
+    key_s, order = torch.sort(key, stable=True)
+    mask_s = mask[order]
+    vals = xyz[order] if extra is None else torch.cat([xyz, extra], dim=1)[order]
+    vals = torch.where(mask_s[:, None], vals, 0.0)
+
+    same = key_s[1:] == key_s[:-1]
+    prev_same = torch.cat([same.new_zeros(1), same])
+    new_voxel = ~prev_same & mask_s
+    sn = torch.cat([same & mask_s[1:], same.new_zeros(1)])
+    acc, cnt = _window_sums(vals, sn, 0, 8)
+
+    # Voxel starts in order, then `capacity` rows gathered.
+    pos = torch.arange(n, device=xyz.device)
+    start_pos = torch.argsort(torch.where(new_voxel, pos, n + pos))[:capacity]
+    sp_c = torch.clamp(start_pos, max=n - 1)
+    is_real = new_voxel[sp_c] & (start_pos < n)
+    cnt_g = torch.clamp(cnt[sp_c], min=1.0)[:, None]
+    out = acc[sp_c] / cnt_g
+    out_extra = out[:, 3:] if extra is not None else None
+    return out[:, :3], is_real, out_extra
+
+
+def voxel_downsample_rows(
+    img: torch.Tensor,  # [S, W, 3] range-image points (azimuth-ordered rows)
+    mask: torch.Tensor,  # [S, W]
+    voxel_size: float,
+    capacity: int,
+    extra: Optional[torch.Tensor] = None,  # [S, W, E]
+    mean_window: int = 8,
+):
+    """Per-ring voxel filter on range-image rows: points sharing an (x, y)
+    voxel form consecutive runs along a row; each run keeps the mean of its
+    first `mean_window` points. When runs exceed `capacity`, each ring gets
+    a slot budget proportional to its run count and decimates uniformly.
+    Returns (xyz [capacity, 3], mask [capacity], ring [capacity] float,
+    extra [capacity, E] or None, dropped int scalar), ring-major."""
+    S, W = mask.shape
+    n = S * W
+    dev = img.device
+    c = torch.floor(img[:, :, :2] / voxel_size).to(torch.int32)
+    same = torch.all(c[:, 1:] == c[:, :-1], dim=-1) & mask[:, 1:] & mask[:, :-1]
+    same_as_prev = torch.cat([same.new_zeros((S, 1)), same], dim=1)
+    new_run = mask & ~same_as_prev
+
+    vals = img if extra is None else torch.cat([img, extra], dim=-1)
+    vals = torch.where(mask[:, :, None], vals, 0.0)
+    sn = torch.cat([same_as_prev[:, 1:], same.new_zeros((S, 1))], dim=1)
+    acc, cnt = _window_sums(vals, sn, 1, mean_window)
+
+    nr = new_run.to(torch.int64)
+    rwr = torch.cumsum(nr, dim=1) - 1  # run number within ring
+    runs_r = torch.sum(nr, dim=1)  # [S]
+    total = torch.clamp(torch.sum(runs_r), min=1)
+    nnz = torch.sum((runs_r > 0).to(torch.int64))
+    prop = 1 + ((capacity - nnz) * runs_r) // total
+    budget = torch.where(
+        total <= capacity, runs_r, torch.where(runs_r > 0, prop, 0)
+    )
+    dec = torch.where(budget > 0, -(-runs_r // torch.clamp(budget, min=1)), 1)
+    offs = torch.cumsum(budget, dim=0) - budget
+    keep = new_run & (budget > 0)[:, None] & (rwr % dec[:, None] == 0)
+    slot = offs[:, None] + rwr // dec[:, None]
+    oidx = torch.where(keep, slot, capacity).reshape(-1)
+    ring_ch = torch.arange(S, dtype=torch.float32, device=dev)[:, None].expand(S, W)
+
+    key_s, order = torch.sort(oidx, stable=True)
+    av = acc.reshape(n, -1)[order]
+    cnt_s = cnt.reshape(-1)[order]
+    ring_s = ring_ch.reshape(-1)[order]
+    if n < capacity:
+        pad = capacity - n
+        key_s = torch.cat([key_s, key_s.new_full((pad,), capacity)])
+        av = torch.cat([av, av.new_zeros((pad, av.shape[1]))])
+        cnt_s = torch.cat([cnt_s, cnt_s.new_zeros(pad)])
+        ring_s = torch.cat([ring_s, ring_s.new_zeros(pad)])
+    got = key_s[:capacity] < capacity
+    mean_o = av[:capacity] / torch.clamp(cnt_s[:capacity], min=1.0)[:, None]
+    out_extra = mean_o[:, 3:] if extra is not None else None
+    dropped = torch.sum(runs_r) - torch.sum(keep.to(torch.int64))
+    return mean_o[:, :3], got, ring_s[:capacity], out_extra, dropped
+
+
+def argmin_topk(d: torch.Tensor, k: int, payload: Optional[torch.Tensor] = None):
+    """Ascending top-k of d [Q, M] by k iterated argmins (ties to the lowest
+    index; an exhausted row repeats index 0 like the reference). payload
+    [Q, M, C] rows ride along. Returns (vals [Q, k], rows [Q, k, C] or None)."""
+    dd = d.clone()
+    vals, rows = [], []
+    for _ in range(k):
+        j = torch.argmin(dd, dim=1, keepdim=True)
+        vals.append(torch.gather(dd, 1, j)[:, 0])
+        if payload is not None:
+            C = payload.shape[2]
+            rows.append(torch.gather(payload, 1, j[:, :, None].expand(-1, 1, C))[:, 0])
+        dd.scatter_(1, j, BIG)
+    return (
+        torch.stack(vals, dim=1),
+        torch.stack(rows, dim=1) if payload is not None else None,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Brute-force 2-NN (the KD-tree replacement)
+# ---------------------------------------------------------------------------
+
+
+def sq_dist(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """[Q, 3] x [T, 3] -> [Q, T] squared distances by direct differences."""
+    d = None
+    for a in range(3):
+        diff = query[:, a : a + 1] - target[None, :, a]
+        d = diff * diff if d is None else d + diff * diff
+    return d
+
+
+def tile_top2(d: torch.Tensor, base: int):
+    """Smallest two entries per row of d [Q, tile] (consumed in place) by
+    double argmin. Returns (d1, i1, d2, i2) with indices offset by base."""
+    j1 = torch.argmin(d, dim=1, keepdim=True)
+    v1 = torch.gather(d, 1, j1)[:, 0]
+    d.scatter_(1, j1, BIG)
+    j2 = torch.argmin(d, dim=1, keepdim=True)
+    v2 = torch.gather(d, 1, j2)[:, 0]
+    return v1, base + j1[:, 0], v2, base + j2[:, 0]
+
+
+def merge_top2(best, tile):
+    """Merge two per-row ascending (d, idx) pairs into the overall smallest
+    two; on equal distances the earlier candidate list wins."""
+    b1d, b1i, b2d, b2i = best
+    v1d, v1i, v2d, v2i = tile
+    t = v1d < b1d
+    f1d = torch.where(t, v1d, b1d)
+    f1i = torch.where(t, v1i, b1i)
+    l1d = torch.where(t, b1d, v1d)
+    l1i = torch.where(t, b1i, v1i)
+    o2d = torch.where(t, v2d, b2d)
+    o2i = torch.where(t, v2i, b2i)
+    s = l1d < o2d
+    return f1d, f1i, torch.where(s, l1d, o2d), torch.where(s, l1i, o2i)
+
+
+def empty_top2(q: int, device):
+    """Initial running top-2: BIG distances and index -1 (no winner yet;
+    its payload row reads as zeros)."""
+    d = torch.full((q,), BIG, dtype=torch.float32, device=device)
+    i = torch.full((q,), -1, dtype=torch.int64, device=device)
+    return d, i, d, i
+
+
+def fit_tile(n: int, tile: int) -> int:
+    """Largest tile <= `tile` by halving that divides n."""
+    while n % tile != 0:
+        tile //= 2
+    return tile
+
+
+def gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rows [T, C] at idx [...]; index -1 gives a zero row."""
+    got = rows[torch.clamp(idx, min=0)]
+    return torch.where((idx >= 0)[..., None], got, _zero_of(got))
+
+
+def knn2_payload(query, query_mask, target, target_mask, payload, tile: int = 8192):
+    """2-NN over target tiles; returns (d [Q, 2] ascending squared
+    distances, BIG for masked queries; P [Q, 2, C] the winners' payload
+    rows). The [Q, tile] distance block is the only large temporary."""
+    tile = fit_tile(target.shape[0], tile)
+    best = empty_top2(query.shape[0], query.device)
+    for t0 in range(0, target.shape[0], tile):
+        d = sq_dist(query, target[t0 : t0 + tile])
+        d = torch.where(target_mask[None, t0 : t0 + tile], d, BIG)
+        best = merge_top2(best, tile_top2(d, t0))
+    b1d, b1i, b2d, b2i = best
+    d = torch.stack([b1d, b2d], dim=1)
+    d = torch.where(query_mask[:, None], torch.clamp(d, min=0.0), BIG)
+    return d, gather_rows(payload, torch.stack([b1i, b2i], dim=1))

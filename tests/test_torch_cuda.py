@@ -1,0 +1,150 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA GPU and skips without one. The file imports
+no JAX, so it runs on a machine that has only PyTorch (the repository's
+conftest.py imports JAX; skip it there):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: K1 exact; K2 equal counts, quaternion within 2e-4 and
+translation within 2e-3 (same math, float32 sums in another order); the
+front end on the card vs on the CPU within 5e-4 / 5e-3 m per frame.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from scaloam_tpu_torch import config
+from scaloam_tpu_torch.models.frontend import FrontEnd
+from scaloam_tpu_torch.ops import features, se3
+from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+from scaloam_tpu_torch.types import LidarScan, Pose
+from scaloam_tpu_torch.utils import synthetic
+
+pytestmark = pytest.mark.cuda
+
+SEL_KW = dict(n_sub=6, n_corner=20, n_flat=4, curv_thr=0.1)
+K2_KW = dict(outer_iterations=2, gn_iterations=4, thr=25.0, huber_delta=0.1)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+def _config():
+    cfg = config.kitti_hdl64()
+    return cfg.replace(
+        sensor=dataclasses.replace(cfg.sensor, max_points=16384, max_points_per_ring=384),
+        mapping=dataclasses.replace(cfg.mapping, cell_size=4.0, grid_xy=32, grid_z=8,
+                                    corner_cell_cap=32, surf_cell_cap=64),
+        pgo=dataclasses.replace(cfg.pgo, keyframe_cloud_capacity=8192),
+    )
+
+
+def _scan_inputs(dev):
+    world = synthetic.make_world(seed=21)
+    pts = synthetic.simulate_scan(world, np.array([0.0, 0.0, 1.8]), 0.4, n_azimuth=250, seed=5)
+    si = features.selection_inputs(LidarScan.from_numpy(pts, 16384, dev), _config())
+    return si.curv, si.left_ext, si.right_ext, si.eligible, si.sp, si.ep
+
+
+def _tie_inputs(dev, seed=0, S=64, W=2304):
+    rng = np.random.default_rng(seed)
+    L = rng.integers(W // 2, W - 10, size=S)
+    j = np.arange(6)
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
+    return (
+        t(rng.integers(0, 8, (S, W)) * 0.05, torch.float32),
+        t(rng.integers(0, 6, (S, W)), torch.int32),
+        t(rng.integers(0, 6, (S, W)), torch.int32),
+        t((np.arange(W) >= 5) & (np.arange(W) <= 4 + L[:, None]) & (rng.uniform(size=(S, W)) < 0.9), torch.bool),
+        t(5 + (L[:, None] * j) // 6, torch.int32),
+        t(5 + (L[:, None] * (j + 1)) // 6 - 1, torch.int32),
+    )
+
+
+@pytest.mark.parametrize("inputs", ["scan", "ties"])
+def test_selection_kernel_matches_plain(dev, inputs):
+    args = _scan_inputs(dev) if inputs == "scan" else _tie_inputs(dev)
+    before = selection.select_features.launches
+    got = selection.select_features(*args, **SEL_KW)
+    want = selection.select_features_plain(*args, **SEL_KW)
+    torch.cuda.synchronize()
+    assert selection.select_features.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) > 0 and int(got[3].sum()) > 0
+
+
+def test_selection_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    args = _tie_inputs(dev, S=8, W=256)
+    curv, left = args[0], args[1]
+    for i, bad in ((0, curv.double()), (0, curv.t().contiguous().t()), (1, left.cpu())):
+        with pytest.raises(ValueError):
+            selection.select_features(*args[:i], bad, *args[i + 1:], **SEL_KW)
+
+
+def _scenario(dev, seed, n_c=768, n_s=1536):
+    """Candidates are ground-truth transformed points plus small
+    class-consistent offsets (the reference's tests/test_pallas_gn.py)."""
+    rng = np.random.default_rng(seed)
+    T = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=dev)
+    gt = Pose(se3.exp_so3(T(rng.normal(0, 0.02, 3))), T(rng.normal(0, 0.3, 3)))
+    cx, cm = T(rng.uniform(-20, 20, (n_c, 3))), T(rng.uniform(size=n_c) < 0.8, torch.bool)
+    sx, sm = T(rng.uniform(-20, 20, (n_s, 3))), T(rng.uniform(size=n_s) < 0.8, torch.bool)
+    cw, sw = se3.apply(gt, cx), se3.apply(gt, sx)
+    cand = lambda base, s: base[:, None] + T(rng.normal(0, s, (base.shape[0], 2, 3)))
+    return (cx, cand(cw, 0.05), cand(cw, 0.3), cm, sx, cand(sw, 0.05), cand(sw, 0.2),
+            cand(sw, 0.3), sm)
+
+
+@pytest.mark.parametrize("case", ["seed0", "seed3", "all_invalid"])
+def test_gn_kernel_matches_plain(dev, case):
+    if case == "all_invalid":
+        arrs = list(_scenario(dev, 1, 64, 128))
+        arrs[3] = torch.zeros_like(arrs[3])
+        arrs[8] = torch.zeros_like(arrs[8])
+    else:
+        arrs = _scenario(dev, int(case[-1]))
+    q0 = torch.tensor([1.0, 0, 0, 0], device=dev)
+    t0 = torch.tensor([0.5, -0.25, 1.0], device=dev)
+    before = gn_odometry.associate_and_solve.launches
+    q, t, n_c, n_s = gn_odometry.associate_and_solve(*arrs, q0, t0, **K2_KW)
+    wq, wt, wn_c, wn_s = gn_odometry.associate_and_solve_plain(*arrs, q0, t0, **K2_KW)
+    torch.cuda.synchronize()
+    assert gn_odometry.associate_and_solve.launches == before + 1
+    assert (int(n_c), int(n_s)) == (int(wn_c), int(wn_s))
+    if torch.dot(q, wq) < 0:
+        q = -q
+    assert float((q - wq).abs().max()) <= 2e-4
+    assert float((t - wt).abs().max()) <= 2e-3
+    if case == "all_invalid":
+        assert (int(n_c), int(n_s)) == (0, 0)
+        assert float((t - t0).abs().max()) <= 1e-5
+
+
+def test_frontend_on_card_tracks_plain_versions_on_cpu(dev):
+    cfg = _config()
+    scans, _ = synthetic.simulate_trajectory(
+        synthetic.make_world(seed=8), n_frames=3, speed=0.8, radius=25.0,
+        n_azimuth=256, seed=3)
+    gpu, cpu = FrontEnd(cfg, device=dev), FrontEnd(cfg, device="cpu")
+    k1, k2 = selection.select_features.launches, gn_odometry.associate_and_solve.launches
+    for s in scans:
+        g = gpu.step(*LidarScan.from_numpy(s, cfg.sensor.max_points, dev))
+        c = cpu.step(*LidarScan.from_numpy(s, cfg.sensor.max_points, "cpu"))
+        assert bool(g.fire) == bool(c.fire)
+        for a, b in ((g.odom_world, c.odom_world), (g.mapped_pose, c.mapped_pose)):
+            qa, qb = a.quat.cpu(), b.quat
+            if torch.dot(qa, qb) < 0:
+                qa = -qa
+            assert float((qa - qb).abs().max()) <= 5e-4
+            assert float((a.trans.cpu() - b.trans).abs().max()) <= 5e-3
+    assert selection.select_features.launches == k1 + len(scans)
+    assert gn_odometry.associate_and_solve.launches == k2 + len(scans) - 1
