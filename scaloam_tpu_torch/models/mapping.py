@@ -3,8 +3,9 @@
 Per frame: prior = correction o odom_pose; inputs voxel-downsampled
 (0.4 m corners, 0.8 m surfs); with a dense enough map, 2 outer passes of
 5-NN line / plane fits against the torus grid map, each followed by 4 GN
-iterations; then the inputs are inserted at the refined pose. With a sparse
-map the prior is kept.
+iterations in one launch of kernel K2's prepared-factor entry
+(ops/kernels/gn_odometry.py:gn_solve_prepared); then the inputs are
+inserted at the refined pose. With a sparse map the prior is kept.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from scaloam_tpu_torch import device as _device
 from scaloam_tpu_torch.config import SlamConfig
-from scaloam_tpu_torch.ops import fit, gn, gridmap, residuals, se3, voxel
+from scaloam_tpu_torch.ops import fit, gridmap, se3, voxel
+from scaloam_tpu_torch.ops.kernels import gn_odometry
 from scaloam_tpu_torch.types import FeatureCloud, Pose
 
 
@@ -113,7 +115,6 @@ def mapping_step(state: MappingState, odom_pose: Pose, corner_cloud: FeatureClou
 
     pose = prior
     n_c = n_s = torch.zeros((), dtype=torch.int32, device=cin_xyz.device)
-    cin_T, sin_T = cin_xyz.T, sin_xyz.T
     cmask = cin_mask & dense_enough
     smask = sin_mask & dense_enough
     nb8_c = _candidates(prior, cin_xyz, cmask, state.corner_grid, m)
@@ -123,15 +124,12 @@ def mapping_step(state: MappingState, odom_pose: Pose, corner_cloud: FeatureClou
         un, nd, sv = _surf_correspond(pose, sin_xyz, smask, nb8_s, m)
         n_c = torch.sum(cv).to(torch.int32)
         n_s = torch.sum(sv).to(torch.int32)
-        prep_e = residuals.edge_prep_T(cin_T, a.T, b.T, cv)
-
-        def build(p, prep_e=prep_e, unT=un.T, nd=nd, sv=sv):
-            return [
-                residuals.edge_factors_from_prep(p, prep_e),
-                residuals.plane_norm_factors_T(p, sin_T, unT, nd, sv),
-            ]
-
-        pose = gn.gauss_newton(pose, build, m.gn_iterations, m.huber_delta)
+        # Kernel K2's prepared-factor entry (its plain version on the CPU).
+        q, t = gn_odometry.gn_solve_prepared(
+            pose.quat, pose.trans, cin_xyz, a, b, cv, sin_xyz, un, nd, sv,
+            gn_iterations=m.gn_iterations, huber_delta=m.huber_delta,
+        )
+        pose = Pose(q, t)
 
     # Degenerate guard: with a sparse map keep the prior.
     pose = Pose(

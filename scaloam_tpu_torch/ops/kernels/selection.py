@@ -2,10 +2,11 @@
 
 Replaces the TPU kernel scaloam_tpu/ops/pallas/selection.py:select_features.
 The kernel is csrc/selection.cu (one thread block per ring row, the row in
-shared memory); what bounds it on the card and what its design does about
-that is noted there. `select_features` launches it for CUDA tensors and
-takes `select_features_plain`, a literal PyTorch transcription of the
-Pallas kernel body, for CPU tensors.
+shared memory; each subregion's candidates sorted once, then one warp walks
+the sorted lists with ballots); what bounds it on the card and what its
+design does about that is noted there. `select_features` launches it for
+CUDA tensors and takes `select_features_plain`, a literal PyTorch
+transcription of the Pallas kernel body, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ from scaloam_tpu_torch.ops.kernels import _build
 
 NEG = -1e30
 _SMEM_LIMIT = 227 * 1024  # opt-in shared memory per block on Hopper
+_MAX_W = 32767  # the kernel's sorted lists hold int16 indices
+_MAX_SUB = 8
+_MAX_ROUNDS = 32  # the kernel keeps round p's pick in lane p
 
 
 def select_features(curv, left_ext, right_ext, eligible, sp, ep, n_sub: int,
@@ -39,8 +43,16 @@ def select_features(curv, left_ext, right_ext, eligible, sp, ep, n_sub: int,
     _build.check(eligible, "eligible", torch.bool, (S, W), dev)
     _build.check(sp, "sp", torch.int32, (S, n_sub), dev)
     _build.check(ep, "ep", torch.int32, (S, n_sub), dev)
+    if (W > _MAX_W or not 1 <= n_sub <= _MAX_SUB or not abs(curv_thr) < 1e30
+            or max(n_corner, n_flat) > _MAX_ROUNDS):
+        raise ValueError(f"select_features: W {W} (max {_MAX_W}), n_sub {n_sub} "
+                         f"(1..{_MAX_SUB}), rounds {n_corner}/{n_flat} (max {_MAX_ROUNDS}) "
+                         f"or curv_thr {curv_thr} out of range")
     lib = _build.library("selection")
-    if 14 * W > _SMEM_LIMIT - 1024:
+    smem_fn = lib.scaloam_select_features_smem
+    smem_fn.restype = ctypes.c_size_t
+    smem_fn.argtypes = [ctypes.c_int] * 4
+    if smem_fn(W, n_sub, n_corner, n_flat) > _SMEM_LIMIT - 1024:
         raise ValueError(f"select_features: row width {W} does not fit in shared memory")
     ci = torch.empty((S, n_sub, n_corner), dtype=torch.int32, device=dev)
     co = torch.empty((S, n_sub, n_corner), dtype=torch.bool, device=dev)

@@ -3,7 +3,9 @@
 
 The reference's one-hot-matmul payload selects, bf16 splits, blocked scans
 and TPU tile tuning are not carried over: winners are index gathers and
-prefix sums are torch.cumsum. Distances are direct differences. Sorts are
+prefix sums are torch.cumsum. The 2-NN searches rank by the reference's
+|q|^2 + |t|^2 - 2 q.t (a plain f32 matmul, TF32 off), since the ranking of
+near-ties changes the odometry solve. Sorts are
 stable so equal keys keep index order, as the reference's CPU sort does;
 ties in every top-k go to the lowest index.
 """
@@ -220,12 +222,13 @@ def argmin_topk(d: torch.Tensor, k: int, payload: Optional[torch.Tensor] = None)
 
 
 def sq_dist(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """[Q, 3] x [T, 3] -> [Q, T] squared distances by direct differences."""
-    d = None
-    for a in range(3):
-        diff = query[:, a : a + 1] - target[None, :, a]
-        d = diff * diff if d is None else d + diff * diff
-    return d
+    """[Q, 3] x [T, 3] -> [Q, T] squared distances in the reference's
+    ranking form |q|^2 + |t|^2 - 2 q.t (f32, TF32 off), so near-ties rank
+    as they do there. May dip below 0 for coincident points; callers clamp
+    the winners at 0 as the reference does."""
+    q2 = torch.sum(query * query, dim=-1, keepdim=True)
+    t2 = torch.sum(target * target, dim=-1)[None, :]
+    return q2 + t2 - 2.0 * torch.matmul(query, target.T)
 
 
 def tile_top2(d: torch.Tensor, base: int):

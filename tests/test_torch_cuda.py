@@ -6,9 +6,10 @@ conftest.py imports JAX; skip it there):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: K1 exact; K2 equal counts, quaternion within 2e-4 and
-translation within 2e-3 (same math, float32 sums in another order); the
-front end on the card vs on the CPU within 5e-4 / 5e-3 m per frame.
+Tolerances: K1 exact; K2 (both entries) equal counts, quaternion within
+2e-4 and translation within 2e-3 (same math, float32 sums in another
+order); the front end on the card vs on the CPU within 5e-4 / 5e-3 m per
+frame.
 """
 
 import dataclasses
@@ -54,27 +55,43 @@ def _scan_inputs(dev):
     return si.curv, si.left_ext, si.right_ext, si.eligible, si.sp, si.ep
 
 
-def _tie_inputs(dev, seed=0, S=64, W=2304):
+def _tie_inputs(dev, seed=0, S=64, W=2304, n_sub=6, bounds="split"):
+    """Quantized curvature (exact ties), random reach and eligibility.
+    Subregion bounds: "split" (even), "empty" (every other subregion has
+    ep < sp) or "overlap" (random overlapping spans: picks of one round in
+    different subregions contend for the same points)."""
     rng = np.random.default_rng(seed)
     L = rng.integers(W // 2, W - 10, size=S)
-    j = np.arange(6)
+    j = np.arange(n_sub)
+    sp = 5 + (L[:, None] * j) // n_sub
+    ep = 5 + (L[:, None] * (j + 1)) // n_sub - 1
+    if bounds == "empty":
+        ep = np.where(j % 2 == 1, sp - 1 - (j // 2), ep)
+    elif bounds == "overlap":
+        sp = rng.integers(0, W // 2, size=(S, n_sub))
+        ep = sp + rng.integers(W // 8, W // 2, size=(S, n_sub))
     t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
     return (
         t(rng.integers(0, 8, (S, W)) * 0.05, torch.float32),
         t(rng.integers(0, 6, (S, W)), torch.int32),
         t(rng.integers(0, 6, (S, W)), torch.int32),
         t((np.arange(W) >= 5) & (np.arange(W) <= 4 + L[:, None]) & (rng.uniform(size=(S, W)) < 0.9), torch.bool),
-        t(5 + (L[:, None] * j) // 6, torch.int32),
-        t(5 + (L[:, None] * (j + 1)) // 6 - 1, torch.int32),
+        t(sp, torch.int32),
+        t(ep, torch.int32),
     )
 
 
-@pytest.mark.parametrize("inputs", ["scan", "ties"])
+@pytest.mark.parametrize("inputs", ["scan", "ties", "nsub1", "empty", "overlap"])
 def test_selection_kernel_matches_plain(dev, inputs):
-    args = _scan_inputs(dev) if inputs == "scan" else _tie_inputs(dev)
+    kw = dict(SEL_KW, n_sub=1) if inputs == "nsub1" else SEL_KW
+    if inputs == "scan":
+        args = _scan_inputs(dev)
+    else:
+        bounds = inputs if inputs in ("empty", "overlap") else "split"
+        args = _tie_inputs(dev, n_sub=kw["n_sub"], bounds=bounds)
     before = selection.select_features.launches
-    got = selection.select_features(*args, **SEL_KW)
-    want = selection.select_features_plain(*args, **SEL_KW)
+    got = selection.select_features(*args, **kw)
+    want = selection.select_features_plain(*args, **kw)
     torch.cuda.synchronize()
     assert selection.select_features.launches == before + 1
     for g, w in zip(got, want):
@@ -136,6 +153,7 @@ def test_frontend_on_card_tracks_plain_versions_on_cpu(dev):
         n_azimuth=256, seed=3)
     gpu, cpu = FrontEnd(cfg, device=dev), FrontEnd(cfg, device="cpu")
     k1, k2 = selection.select_features.launches, gn_odometry.associate_and_solve.launches
+    k2b = gn_odometry.gn_solve_prepared.launches
     for s in scans:
         g = gpu.step(*LidarScan.from_numpy(s, cfg.sensor.max_points, dev))
         c = cpu.step(*LidarScan.from_numpy(s, cfg.sensor.max_points, "cpu"))
@@ -148,3 +166,57 @@ def test_frontend_on_card_tracks_plain_versions_on_cpu(dev):
             assert float((a.trans.cpu() - b.trans).abs().max()) <= 5e-3
     assert selection.select_features.launches == k1 + len(scans)
     assert gn_odometry.associate_and_solve.launches == k2 + len(scans) - 1
+    # mapping runs both outer passes every frame, one entry-B launch each
+    assert gn_odometry.gn_solve_prepared.launches == k2b + 2 * len(scans)
+
+
+def _prepared(dev, seed, n_c=2048, n_s=6656, frac_valid=0.8):
+    """Mapping-sized prepared factors around a ground-truth pose; invalid
+    rows hold NaN, as mapping's degenerate fits do."""
+    rng = np.random.default_rng(seed)
+    T = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=dev)
+    gt = Pose(se3.exp_so3(T(rng.normal(0, 0.02, 3))), T(rng.normal(0, 0.3, 3)))
+    cp, sp = T(rng.uniform(-20, 20, (n_c, 3))), T(rng.uniform(-20, 20, (n_s, 3)))
+    cw, sw = se3.apply(gt, cp), se3.apply(gt, sp)
+    u = torch.nn.functional.normalize(T(rng.normal(size=(n_c, 3))), dim=1)
+    ca = cw + 0.1 * u + T(rng.normal(0, 0.01, (n_c, 3)))
+    cb = cw - 0.1 * u + T(rng.normal(0, 0.01, (n_c, 3)))
+    sn = torch.nn.functional.normalize(T(rng.normal(size=(n_s, 3))), dim=1)
+    sd = -(sn * sw).sum(1) + T(rng.normal(0, 0.01, n_s))
+    cv = T(rng.uniform(size=n_c) < frac_valid, torch.bool)
+    sv = T(rng.uniform(size=n_s) < frac_valid, torch.bool)
+    ca[~cv] = float("nan")
+    sn[~sv] = float("nan")
+    sd[~sv] = float("nan")
+    return cp, ca, cb, cv, sp, sn, sd, sv
+
+
+@pytest.mark.parametrize("case", ["seed0", "seed4", "all_invalid"])
+def test_gn_prepared_kernel_matches_plain(dev, case):
+    arrs = _prepared(dev, 1 if case == "all_invalid" else int(case[-1]),
+                     frac_valid=0.0 if case == "all_invalid" else 0.8)
+    q0 = torch.tensor([1.0, 0, 0, 0], device=dev)
+    t0 = torch.tensor([0.5, -0.25, 1.0], device=dev)
+    kw = dict(gn_iterations=4, huber_delta=0.1)
+    before = gn_odometry.gn_solve_prepared.launches
+    q, t = gn_odometry.gn_solve_prepared(q0, t0, *arrs, **kw)
+    wq, wt = gn_odometry.gn_solve_prepared_plain(q0, t0, *arrs, **kw)
+    torch.cuda.synchronize()
+    assert gn_odometry.gn_solve_prepared.launches == before + 1
+    assert bool(torch.isfinite(q).all()) and bool(torch.isfinite(t).all())
+    if torch.dot(q, wq) < 0:
+        q = -q
+    assert float((q - wq).abs().max()) <= 2e-4
+    assert float((t - wt).abs().max()) <= 2e-3
+    if case == "all_invalid":
+        assert float((t - t0).abs().max()) <= 1e-5
+
+
+def test_gn_cluster_size_is_portable_at_main_path_sizes(dev):
+    cfg = config.kitti_hdl64()
+    odo = gn_odometry.cluster_size(cfg.features.max_sharp, cfg.features.max_flat, prepared=False)
+    mapping = gn_odometry.cluster_size(cfg.mapping.max_corner_input, cfg.mapping.max_surf_input,
+                                       prepared=True)
+    assert 1 <= odo <= 8 and 1 <= mapping <= 8
+    with pytest.raises(ValueError):  # too many points for 8 blocks' shared memory
+        gn_odometry.cluster_size(40000, 40000, prepared=True)

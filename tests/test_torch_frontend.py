@@ -11,8 +11,9 @@ this file uses a config no other trace uses.
 
 Tolerances: extraction is exact (same picks, same compaction) with
 coordinates within 1e-4; poses within 5e-4 (quaternion) and 5e-3 m; counts
-within 1%. The port ranks 2-NN candidates by direct differences and the
-reference by |q|^2 + |t|^2 - 2 q.t, so near-tie candidates may differ.
+within 1%. Both rank 2-NN candidates by |q|^2 + |t|^2 - 2 q.t, so
+near-tie candidates agree; the sparse 250-azimuth drive pins that (ranking
+by direct differences moved its frame-1 translation by 1.7e-2 m).
 """
 
 import ast
@@ -195,6 +196,21 @@ def test_odometry_and_mapping_steps_from_shared_state(drive):
     _assert_count(tm.map_corner_count, jm.map_corner_count, "corner map size")
     _assert_count(tm.map_surf_count, jm.map_surf_count, "surf map size")
     assert int(jm.n_surf_corr) > 0
+
+
+def test_sparse_drive_odometry_ranks_candidates_like_reference(pallas_interpret):
+    """Frame 1 of the seed-40, 250-azimuth drive from the reference's state:
+    the solve is sensitive to how near-tie 2-NN candidates rank."""
+    scans, _ = synthetic.simulate_trajectory(
+        synthetic.make_world(seed=8), n_frames=2, speed=0.8, radius=25.0,
+        n_azimuth=250, seed=40)
+    jf = [jfeat.extract_features(JScan.from_numpy(s, JCFG.sensor.max_points), JCFG) for s in scans]
+    js, _ = jodo.odometry_step(jodo.init_state(JCFG), jf[0], JCFG)
+    host = _host(js)
+    _, jo = jodo.odometry_step(js, jf[1], JCFG)
+    ts = convert.odometry_state_from_numpy(host, "cpu")
+    _, to = todo.odometry_step(ts, tfeat.extract_features(_tscan(scans[1]), TCFG), TCFG)
+    _assert_pose(to.rel, jo.rel, "frame-1 rel")
 
 
 def _check_drive(scans, outs):

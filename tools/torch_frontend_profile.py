@@ -2,17 +2,22 @@
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/torch_frontend_profile.py
+    python3 tools/torch_frontend_profile.py [--root DIR]
 
 Drives the full-width kitti_hdl64 front end (scaloam_tpu_torch) over the
 synthetic HDL-64 drive of chip_smoke.py and reports:
   - per-stage wall time (features, odometry, mapping, gate + keyframe
     prep), each stage ended by torch.cuda.synchronize(), mean over the
     frames after the first two;
+  - per-stage kernel launches: each stage of three steady frames run
+    under its own torch.profiler session, CUDA kernels counted, mean per
+    frame;
   - a torch.profiler window over three steady frames: device time per
     frame (sum of kernel times), kernel launches per frame, the device's
     idle share of the wall time, and the ops with the most device time.
 The last line of standard output is one JSON object with these numbers.
+--root DIR imports scaloam_tpu_torch from another checkout (DIR), so two
+versions can be profiled on one card in one run.
 """
 
 import json
@@ -22,8 +27,6 @@ import sys
 import time
 
 import numpy as np
-
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 N_FRAMES = 10
 
@@ -36,7 +39,14 @@ def _dev_time(evt):
     return 0.0
 
 
-def main() -> int:
+def main(argv) -> int:
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    if argv[:1] == ["--root"] and len(argv) == 2:
+        root = argv[1]
+    elif argv:
+        print("usage: torch_frontend_profile.py [--root DIR]", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
     import torch
 
     if not torch.cuda.is_available():
@@ -54,7 +64,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    print(f"card: {smi}  torch {torch.__version__}  cuda {torch.version.cuda}", flush=True)
+    print(f"card: {smi}  torch {torch.__version__}  cuda {torch.version.cuda}  "
+          f"package {os.path.dirname(frontend.__file__)}", flush=True)
     _build.build()
     cfg = config.kitti_hdl64()
     dev = torch.device("cuda")
@@ -70,36 +81,67 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter()
 
+    from torch.profiler import ProfilerActivity, profile
+
+    def gate_prep(st, feats, m_out):
+        gate, fire = pipeline.gate_step(st.gate, m_out.pose.quat, m_out.pose.trans,
+                                        cfg.pgo.keyframe_meter_gap, cfg.pgo.keyframe_deg_gap)
+        if bool(fire):
+            pipeline._prepare_keyframe(feats.full.xyz, feats.full.mask, feats.full.rel_time, cfg)
+        return gate, fire
+
+    def run_stages(st, scan, wrap):
+        """One frontend_step, stage by stage, each called through wrap(name, fn)."""
+        feats = wrap("features", lambda: features.extract_features(scan, cfg))
+        o_state, o_out = wrap("odometry", lambda: odometry.odometry_step(st.o, feats, cfg))
+        m_state, m_out = wrap("mapping", lambda: mapping.mapping_step(
+            st.m, o_out.world, o_state.last_corner, o_state.last_surf, cfg))
+        gate, fire = wrap("gate_prep", lambda: gate_prep(st, feats, m_out))
+        return frontend.FrontendState(o=o_state, m=m_state, gate=gate), bool(fire)
+
     state = frontend.init_state(cfg, dev)
     stages = {"features": [], "odometry": [], "mapping": [], "gate_prep": []}
     fired = []
     for i, scan in enumerate(dev_scans):
-        t0 = sync_t()
-        feats = features.extract_features(scan, cfg)
-        t1 = sync_t()
-        o_state, o_out = odometry.odometry_step(state.o, feats, cfg)
-        t2 = sync_t()
-        m_state, m_out = mapping.mapping_step(state.m, o_out.world, o_state.last_corner,
-                                              o_state.last_surf, cfg)
-        t3 = sync_t()
-        gate, fire = pipeline.gate_step(state.gate, m_out.pose.quat, m_out.pose.trans,
-                                        cfg.pgo.keyframe_meter_gap, cfg.pgo.keyframe_deg_gap)
-        if bool(fire):
-            pipeline._prepare_keyframe(feats.full.xyz, feats.full.mask, feats.full.rel_time, cfg)
-        t4 = sync_t()
-        state = frontend.FrontendState(o=o_state, m=m_state, gate=gate)
+        times = {}
+
+        def timed(name, fn):
+            t0 = sync_t()
+            out = fn()
+            times[name] = (sync_t() - t0) * 1e3
+            return out
+
+        state, fire = run_stages(state, scan, timed)
         if i >= 2:
-            for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                stages[k].append(dt * 1e3)
-            fired.append(bool(fire))
+            for k in stages:
+                stages[k].append(times[k])
+            fired.append(fire)
     stage_ms = {k: float(np.mean(v)) for k, v in stages.items()}
     prep_fire = [v for v, f in zip(stages["gate_prep"], fired) if f]
     print("stage ms (mean, frames 2+): " + json.dumps(stage_ms), flush=True)
     print(f"gate+prep on keyframe frames: {np.mean(prep_fire) if prep_fire else float('nan'):.3f} ms",
           flush=True)
 
+    # ---- kernel launches per stage: each stage in its own profiler session
+    state = frontend.init_state(cfg, dev)
+    for scan in dev_scans[:3]:
+        state, _ = run_stages(state, scan, lambda name, fn: fn())
+    counts = {k: 0 for k in stages}
+
+    def counted(name, fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            out = fn()
+            torch.cuda.synchronize()
+        counts[name] += sum(1 for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        return out
+
+    for scan in dev_scans[3:6]:
+        state, _ = run_stages(state, scan, counted)
+    stage_launches = {k: v / 3 for k, v in counts.items()}
+    print("kernel launches per frame by stage (frames 3-5): " + json.dumps(stage_launches),
+          flush=True)
+
     # ---- profiler window over three steady frames of FrontEnd.step
-    from torch.profiler import ProfilerActivity, profile
 
     fe = frontend.FrontEnd(cfg, device="cuda")
     for scan in dev_scans[:3]:
@@ -122,7 +164,7 @@ def main() -> int:
         print(f"  {_dev_time(e) / 1e3 / len(window):8.3f} ms/frame  {e.count / len(window):7.1f} calls/frame  {e.key[:80]}")
 
     print(json.dumps({
-        "card": smi, "stage_ms": stage_ms,
+        "card": smi, "stage_ms": stage_ms, "stage_launches_per_frame": stage_launches,
         "prep_on_keyframe_ms": float(np.mean(prep_fire)) if prep_fire else None,
         "profiled_wall_ms_per_frame": wall_ms, "device_ms_per_frame": device_ms,
         "kernels_per_frame": launches, "idle_share": 1 - device_ms / wall_ms,
@@ -133,4 +175,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
