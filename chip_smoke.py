@@ -8,19 +8,41 @@ It builds the hand-written CUDA kernels from scaloam_tpu_torch/csrc with
 nvcc, holds each kernel entry against its plain PyTorch version on the
 card at the shapes of a full-width kitti_hdl64 frame (K1 selection; K2's
 odometry entry A and its prepared-factor entry B, which mapping calls),
-then drives the front end (features -> odometry -> mapping -> keyframe
-gate) through `FrontEnd(kitti_hdl64(), device="cuda")` over a synthetic
-HDL-64 drive, counts each entry's launches on that path and checks the
-poses against the drive's ground truth. The last three lines of standard
-output are the kernel table (JSON), the card's name and power limit, and
+then drives the port's paths, each with the kernels' launch counts set
+to 0 just before it and read just after:
+
+- the front end (features -> odometry -> mapping -> keyframe gate)
+  through `FrontEnd(kitti_hdl64(), device="cuda")` over 12 frames of a
+  synthetic HDL-64 drive, poses checked against its ground truth;
+- (a) the pose graph at users' sizes: `optimize` on drifted synthetic
+  circle chains at 1024 nodes / 16 loops (held against the same function
+  on the CPU), 4096 / 64 (the Woodbury tier) and 8192 / 256 (the large
+  chain-CG tier), three warm-started optimise ticks each, ATE to the
+  ground truth at most half the drifted chain's;
+- (b) the system: `SlamSystem(kitti_hdl64() with a 1 m keyframe gap,
+  device="cuda")` over the 160-frame synthetic loop drive of run.py's
+  synthetic source, which must close a loop, with the backend's stages
+  timed, their host reads counted and one call of each profiled for its
+  kernel launches;
+- (c) the CLI: `scaloam_tpu_torch.run.main` on a 16-frame synthetic drive
+  into build/smoke_session, then resumed from it.
+
+The last three lines of standard output are the kernel table (JSON, with
+the launches of the system drive), the card's name and power limit, and
 the device line (JSON). Any mismatch or error raises, so the exit code is
 non-zero. Without a GPU it exits non-zero and prints no result.
 """
 
+import contextlib
+import dataclasses
+import io
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -38,6 +60,18 @@ MAX_TRANS_ERR_M = 0.5  # sanity bound on the mapped pose vs ground truth
 # corner / surf factor.
 K2_OPS_ASSOC = (55, 105)
 K2_OPS_ITER = (300, 140)
+# (a) pose graph: (nodes, loops) per tier, optimise ticks per tier, and the
+# tier held against the CPU run of the same function.
+PGO_TIERS = ((1024, 16), (4096, 64), (8192, 256))
+PGO_TICKS = 3
+PGO_CPU_TIER = 1024
+PGO_CPU_TOL_M = 1e-3
+# (b) the system drive: run.py's synthetic source, 160 frames.
+SYS_FRAMES = 160
+SYS_ATE_MAX_M = 0.5  # tests/test_pipeline_e2e.py's bounds
+SYS_ATE_VS_ODOM = 1.5
+PROFILE_CALL = 3  # the call of a state-changing backend stage that is profiled
+CLEAN_FRAMES = 30  # frames of the uninstrumented SlamSystem-vs-FrontEnd timing
 
 
 def log(*a):
@@ -117,12 +151,344 @@ def pose_err(torch, label, got, want, counts=None):
     return max(dq, dt)
 
 
+def _scan_job(i):
+    """Frame i of run.py's synthetic drive (simulate_trajectory's circle,
+    radius 22 m, 1 m a frame, 1024 azimuths) and its ground-truth pose."""
+    from scaloam_tpu_torch.utils import synthetic
+
+    world = synthetic.make_world(seed=0, n_boxes=60, extent=70.0)
+    theta = i / 22.0
+    pos = np.array([22.0 * np.sin(theta), 22.0 * (1 - np.cos(theta)), 1.8])
+    pts = synthetic.simulate_scan(world, pos, theta, n_scans=64, n_azimuth=1024, seed=i,
+                                  lidar_type="HDL64")
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(theta), -np.sin(theta), 0], [np.sin(theta), np.cos(theta), 0], [0, 0, 1]]
+    T[:3, 3] = pos
+    return pts, T
+
+
+def circle_chain(n, n_loops, seed, lap=512, step=1.0, bias=5e-6, s_rot=1e-5, s_trans=2e-3):
+    """A planar drive of n nodes around one circle of `lap` nodes, lap
+    after lap. Odometry: the true increments plus a heading bias and
+    noise. Loops: node (L * lap + j) to node j, spread over the later laps,
+    with identity measurements. Returns (gt [n, 3], odom quat [n, 4], odom
+    trans [n, 3], loops [(i, j)])."""
+    alpha = 2 * np.pi / lap
+    R = step / (2 * np.sin(alpha / 2))
+    th = alpha * np.arange(n)
+    gt = np.stack([R * np.sin(th), R * (1 - np.cos(th)), np.zeros(n)], 1)
+    rng = np.random.default_rng(seed)
+    chord = np.array([R * np.sin(alpha), R * (1 - np.cos(alpha))])
+    phi = np.concatenate([[0.0], np.cumsum(alpha + bias + rng.normal(0, s_rot, n - 1))])
+    d = chord[None] + rng.normal(0, s_trans, (n - 1, 2))
+    c, s = np.cos(phi[:-1]), np.sin(phi[:-1])
+    steps = np.stack([c * d[:, 0] - s * d[:, 1], s * d[:, 0] + c * d[:, 1]], 1)
+    pos = np.concatenate([[[0.0, 0.0]], np.cumsum(steps, 0)])
+    odom_t = np.concatenate([pos, np.zeros((n, 1))], 1).astype(np.float32)
+    z = np.zeros(n)
+    odom_q = np.stack([np.cos(phi / 2), z, z, np.sin(phi / 2)], 1).astype(np.float32)
+    laps = n // lap
+    stride = max(1, (lap * (laps - 1)) // n_loops)
+    loops = [(L * lap + j, j) for L in range(1, laps) for j in range(0, lap, stride)][:n_loops]
+    return gt, odom_q, odom_t, loops
+
+
+def build_graph(torch, pg, Pose, cfg, odom_q, odom_t, loops, dev):
+    g = pg.init_graph(cfg, dev, initial_nodes=len(odom_q), initial_loops=len(loops))
+    q, t = torch.from_numpy(odom_q).to(dev), torch.from_numpy(odom_t).to(dev)
+    for k in range(len(odom_q)):
+        g = pg.add_keyframe(g, Pose(q[k], t[k]), 0.0, False, n_nodes=k)
+    ident = Pose.identity(dev)
+    for n, (i, j) in enumerate(loops):
+        g = pg.add_loop(g, i, j, ident, n_loops=n)
+    return g
+
+
+def ate_m(trans, gt) -> float:
+    return float(np.sqrt(np.mean(np.sum((trans[: len(gt)] - gt) ** 2, axis=1))))
+
+
+def count_launches(torch, fn):
+    """(fn(), CUDA kernels fn launched), under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+class SyncCounter:
+    """Counts the synchronizing CUDA operations torch reports (sync debug
+    mode "warn") while active."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seen = []
+
+    def __enter__(self):
+        self._cm = warnings.catch_warnings(record=True)
+        self.seen = self._cm.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._cm.__exit__(*exc)
+
+    def count(self) -> int:
+        return sum(1 for w in self.seen if "synchroniz" in str(w.message))
+
+
+class Stage:
+    """Wraps a callable: each call is timed between device syncs and its
+    host syncs counted (the counter must be active). Call `profile_at` is
+    profiled for its kernel launches instead and left out of the times;
+    a stage without one (a call that changes no state) is profiled by
+    `replay` on its last call's arguments."""
+
+    def __init__(self, torch, name, fn, syncs: SyncCounter, profile_at=None):
+        self.torch, self.name, self.fn, self.syncs = torch, name, fn, syncs
+        self.profile_at = profile_at
+        self.ms, self.sync_counts, self.launches, self.last = [], [], None, None
+        self.profiled_calls = 0  # calls of the drive that were profiled, not timed
+
+    def __call__(self, *a, **k):
+        torch = self.torch
+        torch.cuda.synchronize()
+        if self.launches is None and len(self.ms) == self.profile_at:
+            out, self.launches = count_launches(torch, lambda: self.fn(*a, **k))
+            self.profiled_calls += 1
+            return out
+        self.last = (a, k)
+        n0 = self.syncs.count()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        n1 = self.syncs.count()
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.sync_counts.append(n1 - n0)
+        return out
+
+    def replay(self):
+        if self.launches is None and self.last is not None:
+            a, k = self.last
+            _, self.launches = count_launches(self.torch, lambda: self.fn(*a, **k))
+
+    def summary(self) -> dict:
+        ms = np.asarray(self.ms)
+        return {"calls": len(self.ms) + self.profiled_calls,
+                "ms_mean": float(ms.mean()) if len(ms) else None,
+                "ms_median": float(np.median(ms)) if len(ms) else None,
+                "ms_max": float(ms.max()) if len(ms) else None,
+                "host_syncs_mean": float(np.mean(self.sync_counts)) if self.sync_counts else None,
+                "launches": self.launches}
+
+
+def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
+    """(a): optimise ticks on the circle chains; returns a row per tier."""
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.models import posegraph as pg
+    from scaloam_tpu_torch.types import Pose
+
+    rows = []
+    for n, nl in tiers:
+        gt, oq, ot, loops = circle_chain(n, nl, seed=n)
+        cfg = dataclasses.replace(config.PGOConfig(), max_keyframes=n, max_loops=nl,
+                                  loop_variance=1e-3, cauchy_k=100.0)
+        g = build_graph(torch, pg, Pose, cfg, oq, ot, loops, dev)
+        drift = ate_m(ot, gt)
+        ticks = []
+        for tick in range(PGO_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = pg.optimize(g, cfg)
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t0) * 1e3)
+            if tick == 0 and n == PGO_CPU_TIER:
+                g_cpu = pg.optimize(build_graph(torch, pg, Pose, cfg, oq, ot, loops, "cpu"), cfg)
+                diff = float((g.poses.trans.cpu() - g_cpu.poses.trans).abs().max())
+                if not diff <= PGO_CPU_TOL_M:
+                    raise AssertionError(f"pose graph {n}: card vs CPU {diff:.2e} m")
+                log(f"pose graph {n}: card vs CPU after one optimise: max |dt| {diff:.2e} m "
+                    f"(tol {PGO_CPU_TOL_M})")
+        trans = g.poses.trans.cpu().numpy()
+        if not (np.isfinite(trans).all() and np.isfinite(g.poses.quat.cpu().numpy()).all()):
+            raise AssertionError(f"pose graph {n}: non-finite poses")
+        opt = ate_m(trans, gt)
+        if not opt <= 0.5 * drift:
+            raise AssertionError(f"pose graph {n}: ATE {opt:.3f} m > half the drift {drift:.3f} m")
+        _, launches = count_launches(torch, lambda: pg.optimize(g, cfg))
+        with SyncCounter(torch) as sc:
+            pg.optimize(g, cfg)
+            syncs = sc.count()
+        row = {"nodes": n, "loops": nl, "woodbury": pg.uses_woodbury(n, nl, cfg),
+               "ms_per_optimise": ticks, "launches_per_optimise": launches,
+               "host_syncs_per_optimise": syncs, "ate_drift_m": drift, "ate_opt_m": opt}
+        log(f"pose graph {n} nodes / {nl} loops ({'Woodbury' if row['woodbury'] else 'chain-CG'}): "
+            f"ms per optimise {[round(x, 2) for x in ticks]}, {launches} launches, "
+            f"{syncs} host syncs, ATE {drift:.4f} -> {opt:.4f} m")
+        rows.append(row)
+    return rows
+
+
+def system_phase(torch, dev, cfg, scans, gt, launch_counters):
+    """(b): the drive through SlamSystem(cfg); returns the stats."""
+    from scaloam_tpu_torch.models import pipeline, posegraph
+    from scaloam_tpu_torch.utils.evaluation import ate_rmse
+
+    s = pipeline.SlamSystem(cfg, device=dev)
+    syncs = SyncCounter(torch)
+    stages = {
+        "keyframe prep": Stage(torch, "keyframe prep", pipeline._prepare_keyframe, syncs),
+        "sc make": Stage(torch, "sc make", s.sc.make_and_save, syncs, profile_at=PROFILE_CALL),
+        "sc detect": Stage(torch, "sc detect", s.sc.detect_loop_closure_id, syncs),
+        "graph append": Stage(torch, "graph append", posegraph.add_keyframe, syncs,
+                              profile_at=PROFILE_CALL),
+        "icp verify": Stage(torch, "icp verify", s._icp_verify, syncs),
+        "optimise": Stage(torch, "optimise", posegraph.optimize, syncs),
+    }
+    orig = (pipeline._prepare_keyframe, posegraph.add_keyframe, posegraph.optimize)
+    pipeline._prepare_keyframe = stages["keyframe prep"]
+    posegraph.add_keyframe = stages["graph append"]
+    posegraph.optimize = stages["optimise"]
+    s.sc.make_and_save = stages["sc make"]
+    s.sc.detect_loop_closure_id = stages["sc detect"]
+    s._icp_verify = stages["icp verify"]
+    frame_ms, frame_syncs, kf_flags = [], [], []
+    for counter in launch_counters:
+        counter.launches = 0
+    try:
+        with syncs:
+            for i, pts in enumerate(scans):
+                n0 = syncs.count()
+                t0 = time.perf_counter()
+                r = s.process_scan(pts, time=0.1 * i)
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                frame_syncs.append(syncs.count() - n0)
+                kf_flags.append(r.is_keyframe)
+        torch.cuda.synchronize()
+    finally:
+        pipeline._prepare_keyframe, posegraph.add_keyframe, posegraph.optimize = orig
+    launches = [c.launches for c in launch_counters]
+    for st in stages.values():
+        st.replay()
+
+    est, odom = s.optimized_poses(), s.odometry_keyframe_poses()
+    if not (np.isfinite(est).all() and np.isfinite(odom).all()):
+        raise AssertionError("system drive: non-finite keyframe poses")
+    gt_rel = np.stack([np.linalg.inv(gt[0]) @ g for g in gt])
+    gt_kf = gt_rel[[kf.frame for kf in s.keyframes]]
+    ate_opt, ate_odom = ate_rmse(est, gt_kf), ate_rmse(odom, gt_kf)
+    if not s.loops_found:
+        raise AssertionError("system drive: no loop accepted")
+    if not (ate_opt < SYS_ATE_MAX_M and ate_opt <= SYS_ATE_VS_ODOM * ate_odom):
+        raise AssertionError(f"system drive: ATE {ate_opt:.4f} m (odometry {ate_odom:.4f} m)")
+    kf = np.asarray(kf_flags)
+    ms = np.asarray(frame_ms)
+    steady = np.arange(len(ms)) >= 2
+    stats = {
+        "frames": len(scans), "keyframes": len(s.keyframes), "loops": s.loops_found,
+        "ate_opt_m": ate_opt, "ate_odom_m": ate_odom, "launches": launches,
+        "ms_per_frame_non_keyframe_median": float(np.median(ms[~kf & steady])),
+        "ms_per_frame_non_keyframe_mean": float(ms[~kf & steady].mean()),
+        "ms_per_frame_keyframe_median": float(np.median(ms[kf & steady])),
+        "ms_per_frame_all_mean": float(ms[steady].mean()),
+        "host_syncs_per_frame_non_keyframe": float(np.mean(np.asarray(frame_syncs)[~kf])),
+        "host_syncs_per_frame_keyframe": float(np.mean(np.asarray(frame_syncs)[kf])),
+        "stages": {k: v.summary() for k, v in stages.items()},
+    }
+    return stats
+
+
+def clean_frame_times(torch, dev, cfg, scans, frontend_cfg=None):
+    """ms/frame of SlamSystem.process_scan (no wrappers, no sync counter)
+    and of FrontEnd.step with the same host-to-device upload, over the
+    same scans in one process: (system ms of non-keyframe frames, system
+    ms of keyframe frames, front-end ms per frame), frames 2.. each."""
+    from scaloam_tpu_torch.models.frontend import FrontEnd
+    from scaloam_tpu_torch.models.pipeline import SlamSystem
+    from scaloam_tpu_torch.types import LidarScan
+
+    s = SlamSystem(cfg, device=dev)
+    sys_ms, kf = [], []
+    for i, pts in enumerate(scans):
+        t0 = time.perf_counter()
+        r = s.process_scan(pts, time=0.1 * i)
+        sys_ms.append((time.perf_counter() - t0) * 1e3)
+        kf.append(r.is_keyframe)
+    fe = FrontEnd(frontend_cfg or cfg, device=dev)
+    fe_ms = []
+    for pts in scans:
+        t0 = time.perf_counter()
+        fe.step(*LidarScan.from_numpy(pts, cfg.sensor.max_points, dev))
+        torch.cuda.synchronize()
+        fe_ms.append((time.perf_counter() - t0) * 1e3)
+    sys_ms, kf = np.asarray(sys_ms[2:]), np.asarray(kf[2:])
+    return sys_ms[~kf], sys_ms[kf], np.asarray(fe_ms[2:])
+
+
+def cli_phase(root, extra_args=()):
+    """(c): run.main on 16 synthetic frames into build/smoke_session, then
+    resumed from it; returns both JSON results."""
+    import shutil
+
+    from scaloam_tpu_torch import run
+
+    out = os.path.join(root, "build", "smoke_session")
+    shutil.rmtree(out, ignore_errors=True)
+    base = ["--synthetic", "16", "--keyframe-gap", "1.0", "--synthetic-radius", "25",
+            *extra_args]
+    results = []
+    for extra in (["--out", out], ["--resume", out, "--out", out]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run.main(base + extra)
+        if rc != 0:
+            raise AssertionError(f"run.main {extra}: exit code {rc}")
+        results.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
+    names = set(os.listdir(out))
+    want = {"Scans", "SCDs", "optimized_poses.txt", "odom_poses.txt",
+            "singlesession_posegraph.g2o", "times.txt"}
+    if not want <= names:
+        raise AssertionError(f"session artifacts {sorted(names)} lack {sorted(want - names)}")
+    first, resumed = results
+    n_kf = resumed["keyframes"]
+    if not (first["keyframes"] >= 3 and n_kf > first["keyframes"]
+            and len(os.listdir(os.path.join(out, "Scans"))) == n_kf
+            and len(os.listdir(os.path.join(out, "SCDs"))) == n_kf
+            and len(np.loadtxt(os.path.join(out, "times.txt"))) == n_kf):
+        raise AssertionError(f"CLI session: {results}")
+    for r in results:
+        for key in ("frames", "keyframes", "loops", "scans_per_sec", "degenerate_frames", "out",
+                    "ate_rmse_optimized", "ate_rmse_odometry"):
+            if key not in r:
+                raise AssertionError(f"CLI result lacks {key}: {r}")
+    return results
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    import scaloam_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    # The system drive's scans are made by worker processes while the
+    # kernels build and the earlier phases run.
+    pool = multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+    try:
+        drive = pool.map_async(_scan_job, range(SYS_FRAMES))
+        return _main(torch, drive)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _main(torch, drive) -> int:
+    t_script = time.perf_counter()
 
     from scaloam_tpu_torch import config
     from scaloam_tpu_torch.models import odometry
@@ -141,7 +507,7 @@ def main() -> int:
     log(f"card: {smi}")
 
     # ---- build every kernel of the path from csrc/ (parallel nvcc)
-    t0 = time.perf_counter()
+    t0 = t_checks = time.perf_counter()
     logs = _build.build()
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
@@ -312,7 +678,10 @@ def main() -> int:
         f"bound {kb_bound:.6f} ms ({kb_bytes} B, {kb_ops} ops), "
         f"cluster {gn_odometry.cluster_size(Nc, Ns, prepared=True)} blocks")
 
+    log(f"phase wall: build and kernel checks {time.perf_counter() - t_checks:.1f} s")
+
     # ---- main path: the full-width front end, launches counted
+    t_phase = time.perf_counter()
     selection.select_features.launches = 0
     gn_odometry.associate_and_solve.launches = 0
     gn_odometry.gn_solve_prepared.launches = 0
@@ -351,6 +720,58 @@ def main() -> int:
         f"{ms_frame:.2f} ms/frame over frames "
         f"{WARM_FRAMES}-{N_FRAMES - 1}, max mapped-pose error {err.max():.4f} m "
         f"(mean {err.mean():.4f} m), final odom {odom[-1].round(3).tolist()}")
+
+    log(f"phase wall: front end {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (a) the pose graph at users' sizes
+    t_phase = time.perf_counter()
+    pose_graph_phase(torch, dev)
+    log(f"phase wall: (a) pose graph {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (b) the system over the 160-frame loop drive, launches counted
+    t_phase = time.perf_counter()
+    made = drive.get()
+    scans, sys_gt = [m[0] for m in made], np.stack([m[1] for m in made])
+    log(f"system drive data: {len(scans)} scans of {[len(x) for x in scans[:3]]}... points "
+        f"ready {time.perf_counter() - t_phase:.1f} s after the front end")
+    counters = (selection.select_features, gn_odometry.associate_and_solve,
+                gn_odometry.gn_solve_prepared)
+    t_drive = time.perf_counter()
+    sys_cfg = config.kitti_hdl64()
+    sys_cfg = sys_cfg.replace(pgo=dataclasses.replace(sys_cfg.pgo, keyframe_meter_gap=1.0))
+    sys_stats = system_phase(torch, dev, sys_cfg, scans, sys_gt, counters)
+    launches = dict(zip(("K1", "K2 A", "K2 B"), sys_stats["launches"]))
+    want = {"K1": SYS_FRAMES, "K2 A": SYS_FRAMES - 1,
+            "K2 B": config.kitti_hdl64().mapping.outer_iterations * SYS_FRAMES}
+    if launches != want:
+        raise AssertionError(f"system drive launches {launches}, want {want}")
+    log(f"system drive: {sys_stats['frames']} frames, {sys_stats['keyframes']} keyframes, "
+        f"loops {sys_stats['loops']}, launches {launches}, ATE optimised "
+        f"{sys_stats['ate_opt_m']:.4f} m vs odometry {sys_stats['ate_odom_m']:.4f} m")
+    log(f"system ms/frame: non-keyframe median "
+        f"{sys_stats['ms_per_frame_non_keyframe_median']:.2f} (mean "
+        f"{sys_stats['ms_per_frame_non_keyframe_mean']:.2f}), keyframe median "
+        f"{sys_stats['ms_per_frame_keyframe_median']:.2f}, all {sys_stats['ms_per_frame_all_mean']:.2f}; "
+        f"host syncs per frame: non-keyframe {sys_stats['host_syncs_per_frame_non_keyframe']:.2f}, "
+        f"keyframe {sys_stats['host_syncs_per_frame_keyframe']:.2f}")
+    for name, st in sys_stats["stages"].items():
+        log(f"  stage {name}: {json.dumps(st)}")
+    non_kf, kf_ms, fe_ms = clean_frame_times(torch, dev, sys_cfg, scans[:CLEAN_FRAMES])
+    sys_stats["clean"] = {"frames": CLEAN_FRAMES, "system_non_keyframe_ms": non_kf.tolist(),
+                          "system_keyframe_ms": kf_ms.tolist(), "frontend_ms": fe_ms.tolist()}
+    log(f"uninstrumented, frames 2-{CLEAN_FRAMES - 1} of the drive: SlamSystem non-keyframe "
+        f"median {np.median(non_kf):.2f} ms ({len(non_kf)} frames), keyframe median "
+        f"{np.median(kf_ms):.2f} ms ({len(kf_ms)}); FrontEnd.step + upload median "
+        f"{np.median(fe_ms):.2f} ms")
+    log(f"phase wall: (b) system {time.perf_counter() - t_drive:.1f} s")
+
+    # ---- (c) the CLI, then resumed
+    t_phase = time.perf_counter()
+    cli = cli_phase(os.getcwd())
+    log(f"cli: {json.dumps(cli[0])}")
+    log(f"cli resumed: {json.dumps(cli[1])}")
+    log(f"phase wall: (c) CLI {time.perf_counter() - t_phase:.1f} s")
+    log(f"script wall: {time.perf_counter() - t_script:.1f} s")
 
     gn_src = "scaloam_tpu_torch/csrc/gn_odometry.cu"
     kernels = [

@@ -1,4 +1,4 @@
-"""scaloam_tpu_torch: the PyTorch/CUDA port of the SLAM front end.
+"""scaloam_tpu_torch: the PyTorch/CUDA port of the SLAM system.
 
 The JAX package `scaloam_tpu` stays the reference; this package imports
 none of it. Everything runs in float32. The reference asks for full-f32

@@ -1,11 +1,12 @@
-"""Carry front-end state across from the JAX reference.
+"""Carry state across from the JAX reference.
 
 The system has no weights: its carried state is the odometry state, the
-mapping state (two torus grid maps) and the keyframe-gate state.
-`state_from_numpy` takes that state as nested NamedTuples or dicts of
-numpy arrays (for a JAX state: `jax.tree.map(np.asarray, state)`) and
-builds the port's FrontendState on `device`, so both implementations can
-start from the same mid-run map.
+mapping state (two torus grid maps), the keyframe-gate state and the
+backend (pose graph, ScanContext database, keyframe clouds). Each
+`*_from_numpy` takes that state as nested NamedTuples or dicts of numpy
+arrays (for a JAX state: `jax.tree.map(np.asarray, state)`) and builds the
+port's counterpart on `device`, so both implementations can start from the
+same mid-run state.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from scaloam_tpu_torch.models.frontend import FrontendState
 from scaloam_tpu_torch.models.mapping import MappingState
 from scaloam_tpu_torch.models.odometry import OdometryState
 from scaloam_tpu_torch.models.pipeline import GateState
+from scaloam_tpu_torch.models.posegraph import PoseGraph
+from scaloam_tpu_torch.models.scancontext import SCDatabase
 from scaloam_tpu_torch.ops.gridmap import GridMap
 from scaloam_tpu_torch.types import FeatureCloud, Pose
 
@@ -28,7 +31,7 @@ def _get(tree, name):
 def _leaves(cls, tree, device, **convert):
     """cls(**fields) with each field from tree, by default as a tensor."""
     return cls(**{
-        f: convert.get(f, lambda v: torch.as_tensor(np.asarray(v)).to(device))(_get(tree, f))
+        f: convert.get(f, lambda v: torch.as_tensor(np.array(v)).to(device))(_get(tree, f))
         for f in cls._fields
     })
 
@@ -68,3 +71,49 @@ def state_from_numpy(tree, device) -> FrontendState:
         m=mapping_state_from_numpy(_get(tree, "m"), device),
         gate=gate_state_from_numpy(_get(tree, "gate"), device),
     )
+
+
+def graph_from_numpy(tree, device) -> PoseGraph:
+    """A pose graph (loop indices as int64, counts as int32)."""
+    as_t = lambda dt: (lambda v: torch.as_tensor(np.array(v)).to(device, dt))
+    pose = lambda t: pose_from_numpy(t, device)
+    return _leaves(
+        PoseGraph, tree, device, poses=pose, odom_poses=pose, odom_rel=pose,
+        loop_rel=pose, loop_i=as_t(torch.int64), loop_j=as_t(torch.int64),
+        n_nodes=as_t(torch.int32), n_loops=as_t(torch.int32),
+    )
+
+
+def sc_db_from_numpy(tree, device) -> SCDatabase:
+    return _leaves(SCDatabase, tree, device,
+                   count=lambda v: torch.as_tensor(np.array(v)).to(device, torch.int64))
+
+
+def system_from_numpy(tree, cfg, device):
+    """A SlamSystem carrying another system's backend state: `tree` is a
+    dict with `graph`, `sc_db` (numpy trees as above), `keyframes` (dicts
+    of cloud, intensity, time, frame), `gate`, `loops_found`,
+    `gps_alt_offset`, `frame_idx`, and optionally the front-end states
+    `o` and `m`."""
+    from scaloam_tpu_torch.models.pipeline import Keyframe, SlamSystem
+
+    s = SlamSystem(cfg, device=device)
+    dev = s.device
+    s.graph = graph_from_numpy(tree["graph"], dev)
+    s.sc.db = sc_db_from_numpy(tree["sc_db"], dev)
+    s.sc._n = int(np.asarray(_get(tree["sc_db"], "count")))
+    s.keyframes = [
+        Keyframe(cloud=np.asarray(k["cloud"], np.float32), time=float(k["time"]),
+                 frame=int(k["frame"]),
+                 intensity=None if k["intensity"] is None else np.asarray(k["intensity"]))
+        for k in tree["keyframes"]
+    ]
+    s.kf_times = [k.time for k in s.keyframes]
+    s.gate_state = gate_state_from_numpy(tree["gate"], dev)
+    s.loops_found = [tuple(map(int, ij)) for ij in tree["loops_found"]]
+    s._gps_alt_offset = tree["gps_alt_offset"]
+    s.frame_idx = int(tree["frame_idx"])
+    if "o" in tree:
+        s.o_state = odometry_state_from_numpy(tree["o"], dev)
+        s.m_state = mapping_state_from_numpy(tree["m"], dev)
+    return s

@@ -118,8 +118,11 @@ def insert(grid: GridMap, xyz: torch.Tensor, mask: torch.Tensor,
     return GridMap(pts=pts, count=new_count, cell_coord=cell_coord, total=total)
 
 
-_COMBOS8 = [[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)]
-_COMBOS27 = [[a, b, c] for a in (0, 1, 2) for b in (0, 1, 2) for c in (0, 1, 2)]
+def _combos(base: int, device) -> torch.Tensor:
+    """[[a, b, c] for a in range(base) for b in range(base) for c in
+    range(base)] as int32 [base^3, 3], made on the device."""
+    k = torch.arange(base ** 3, dtype=torch.int32, device=device)
+    return torch.stack([k // (base * base), (k // base) % base, k % base], dim=-1)
 
 
 def candidate_cells8(lo: torch.Tensor, hi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,7 +130,7 @@ def candidate_cells8(lo: torch.Tensor, hi: torch.Tensor) -> Tuple[torch.Tensor, 
     canonical-combo mask: where lo == hi on an axis only the all-lo combo
     survives, so no map point fills two candidate slots.
     Returns (cc8 [Q, 8, 3], uniq [Q, 8] bool)."""
-    combos = torch.tensor(_COMBOS8, dtype=torch.int32, device=lo.device)
+    combos = _combos(2, lo.device)
     cc8 = torch.where(combos[None] > 0, hi[:, None, :], lo[:, None, :])
     uniq = torch.all((combos[None] == 0) | (hi != lo)[:, None, :], dim=-1)
     return cc8, uniq
@@ -148,7 +151,7 @@ def knn_grid(grid: GridMap, query: torch.Tensor, query_mask: torch.Tensor,
     if 2 * reach <= cell_size:
         cc8, uniq = candidate_cells8(lo, hi)
     else:
-        combos = torch.tensor(_COMBOS27, dtype=torch.int32, device=query.device)
+        combos = _combos(3, query.device)
         cc8 = lo[:, None, :] + combos[None]
         uniq = None
     idx8 = _flat_idx(cc8, gx, gy, gz).to(torch.int64)  # [Q, 8]

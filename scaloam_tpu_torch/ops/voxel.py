@@ -1,9 +1,9 @@
-"""Voxel-grid downsampling, compaction and brute-force 2-NN
+"""Voxel-grid downsampling, compaction and brute-force k-NN
 (counterpart of scaloam_tpu/ops/voxel.py).
 
 The reference's one-hot-matmul payload selects, bf16 splits, blocked scans
 and TPU tile tuning are not carried over: winners are index gathers and
-prefix sums are torch.cumsum. The 2-NN searches rank by the reference's
+prefix sums are torch.cumsum. The NN searches rank by the reference's
 |q|^2 + |t|^2 - 2 q.t (a plain f32 matmul, TF32 off), since the ranking of
 near-ties changes the odometry solve. Sorts are
 stable so equal keys keep index order, as the reference's CPU sort does;
@@ -277,6 +277,61 @@ def gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """rows [T, C] at idx [...]; index -1 gives a zero row."""
     got = rows[torch.clamp(idx, min=0)]
     return torch.where((idx >= 0)[..., None], got, _zero_of(got))
+
+
+def knn(query, query_mask, target, target_mask, k: int, tile: int = 2048):
+    """Exact k-NN by brute force over target tiles, ranked by |q|^2 + |t|^2
+    - 2 q.t. Returns (d [Q, k] ascending squared distances, clamped at 0 and
+    BIG for masked queries; idx [Q, k] int64 target indices). Ties go to the
+    lowest index; a slot no valid target fills keeps index 0."""
+    tile = fit_tile(target.shape[0], tile)
+    Q = query.shape[0]
+    dev = query.device
+    best_d = torch.full((Q, k), BIG, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((Q, k), dtype=torch.int64, device=dev)
+    if k == 2:
+        best = (best_d[:, 0], best_i[:, 0], best_d[:, 1], best_i[:, 1])
+    for t0 in range(0, target.shape[0], tile):
+        d = sq_dist(query, target[t0 : t0 + tile])
+        d = torch.where(target_mask[None, t0 : t0 + tile], d, BIG)
+        if k == 1:
+            v, j = torch.min(d, dim=1)  # first index among equal minima
+            upd = v < best_d[:, 0]
+            best_d = torch.where(upd, v, best_d[:, 0])[:, None]
+            best_i = torch.where(upd, t0 + j, best_i[:, 0])[:, None]
+        elif k == 2:
+            best = merge_top2(best, tile_top2(d, t0))
+        else:
+            # Running top-k: the tile's k smallest, then the k smallest of
+            # (running, tile) with the running list first; stable sorts keep
+            # the lower position on ties.
+            tv, tj = torch.sort(d, dim=1, stable=True)
+            cat_d = torch.cat([best_d, tv[:, :k]], dim=1)
+            cat_i = torch.cat([best_i, t0 + tj[:, :k]], dim=1)
+            nd, nj = torch.sort(cat_d, dim=1, stable=True)
+            best_d, best_i = nd[:, :k], torch.gather(cat_i, 1, nj[:, :k])
+    if k == 2:
+        best_d = torch.stack([best[0], best[2]], dim=1)
+        best_i = torch.stack([best[1], best[3]], dim=1)
+    best_d = torch.where(query_mask[:, None], torch.clamp(best_d, min=0.0), BIG)
+    return best_d, best_i
+
+
+def nn1(query, query_mask, target, target_mask, tile: int = 2048):
+    """1-NN: ([Q] squared distance, [Q] index)."""
+    d, i = knn(query, query_mask, target, target_mask, k=1, tile=tile)
+    return d[:, 0], i[:, 0]
+
+
+def pad_to_multiple(xyz: torch.Tensor, mask: torch.Tensor, multiple: int):
+    """Pad the point dim up to a multiple with masked rows."""
+    pad = (-xyz.shape[0]) % multiple
+    if pad == 0:
+        return xyz, mask
+    return (
+        torch.cat([xyz, xyz.new_zeros((pad, xyz.shape[1]))]),
+        torch.cat([mask, mask.new_zeros(pad)]),
+    )
 
 
 def knn2_payload(query, query_mask, target, target_mask, payload, tile: int = 8192):

@@ -22,9 +22,12 @@ class Pose(NamedTuple):
     trans: torch.Tensor  # [..., 3]
 
     @staticmethod
-    def identity(device) -> "Pose":
-        q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32, device=device)
-        return Pose(q, torch.zeros(3, dtype=torch.float32, device=device))
+    def identity(device, batch_shape=()) -> "Pose":
+        """Identity poses of shape `batch_shape` (a fresh tensor each)."""
+        batch_shape = tuple(batch_shape)
+        q = torch.zeros(batch_shape + (4,), dtype=torch.float32, device=device)
+        q[..., 0] = 1.0
+        return Pose(q, torch.zeros(batch_shape + (3,), dtype=torch.float32, device=device))
 
 
 class LidarScan(NamedTuple):
