@@ -25,7 +25,17 @@ to 0 just before it and read just after:
   timed, their host reads counted and one call of each profiled for its
   kernel launches;
 - (c) the CLI: `scaloam_tpu_torch.run.main` on a 16-frame synthetic drive
-  into build/smoke_session, then resumed from it.
+  into build/smoke_session, then resumed from it, and with
+  --async-pipeline into build/smoke_async;
+- (d1) the threaded runtime `AsyncSlamPipeline`, fused and then separate,
+  over the first 48 frames of (b)'s drive fed at once: no frame dropped,
+  every frame's odometry within 1e-3 m of (b)'s and the same keyframes;
+- (d2) the fused runtime over all 160 frames fed at the sensor's 10 Hz:
+  scans/s, drops, stage busy times, optimise and ICP times under threads,
+  at least one loop verified and the optimised keyframes' ATE;
+- (e) the de-skew path: 8 skewed full-width frames (accelerating, the
+  reference's tests/test_deskew.py scene) through features + odometry_step
+  with distortion off and on; de-skewed error bounds, K2 entry A gated off.
 
 The last three lines of standard output are the kernel table (JSON, with
 the launches of the system drive), the card's name and power limit, and
@@ -72,6 +82,14 @@ SYS_ATE_MAX_M = 0.5  # tests/test_pipeline_e2e.py's bounds
 SYS_ATE_VS_ODOM = 1.5
 PROFILE_CALL = 3  # the call of a state-changing backend stage that is profiled
 CLEAN_FRAMES = 30  # frames of the uninstrumented SlamSystem-vs-FrontEnd timing
+# (d1)/(d2) the threaded runtime over (b)'s scans.
+ASYNC_FRAMES = 48  # < the queue depth of 100, so nothing drops when fed at once
+ASYNC_ODOM_TOL_M = 1e-3
+SENSOR_PERIOD_S = 0.1
+# (e) de-skew: tests/test_deskew.py's scene and bounds.
+DESKEW_FRAMES = 8
+DESKEW_MAX_ERR_M = 0.06
+DESKEW_VS_PLAIN = 0.55
 
 
 def log(*a):
@@ -165,6 +183,16 @@ def _scan_job(i):
     T[:3, :3] = [[np.cos(theta), -np.sin(theta), 0], [np.sin(theta), np.cos(theta), 0], [0, 0, 1]]
     T[:3, 3] = pos
     return pts, T
+
+
+def _deskew_scans():
+    """tests/test_deskew.py's skewed, accelerating drive: scans and the
+    ground truth at each sweep's start."""
+    from scaloam_tpu_torch.utils import synthetic
+
+    return synthetic.simulate_trajectory(
+        synthetic.make_world(seed=3), n_frames=DESKEW_FRAMES, speed=0.6, radius=30.0,
+        n_azimuth=900, seed=10, skew=True, accel=0.25)
 
 
 def circle_chain(n, n_loops, seed, lap=512, step=1.0, bias=5e-6, s_rot=1e-5, s_trans=2e-3):
@@ -356,7 +384,7 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
     s.sc.make_and_save = stages["sc make"]
     s.sc.detect_loop_closure_id = stages["sc detect"]
     s._icp_verify = stages["icp verify"]
-    frame_ms, frame_syncs, kf_flags = [], [], []
+    frame_ms, frame_syncs, kf_flags, odom_first = [], [], [], []
     for counter in launch_counters:
         counter.launches = 0
     try:
@@ -368,6 +396,8 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
                 frame_ms.append((time.perf_counter() - t0) * 1e3)
                 frame_syncs.append(syncs.count() - n0)
                 kf_flags.append(r.is_keyframe)
+                if i < ASYNC_FRAMES:
+                    odom_first.append(r.odom_pose.trans)
         torch.cuda.synchronize()
     finally:
         pipeline._prepare_keyframe, posegraph.add_keyframe, posegraph.optimize = orig
@@ -398,6 +428,8 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
         "host_syncs_per_frame_non_keyframe": float(np.mean(np.asarray(frame_syncs)[~kf])),
         "host_syncs_per_frame_keyframe": float(np.mean(np.asarray(frame_syncs)[kf])),
         "stages": {k: v.summary() for k, v in stages.items()},
+        "odom_first": torch.stack(odom_first).cpu().numpy(),
+        "keyframes_first": int(np.sum(kf[:ASYNC_FRAMES])),
     }
     return stats
 
@@ -460,12 +492,168 @@ def cli_phase(root, extra_args=()):
             and len(os.listdir(os.path.join(out, "SCDs"))) == n_kf
             and len(np.loadtxt(os.path.join(out, "times.txt"))) == n_kf):
         raise AssertionError(f"CLI session: {results}")
+    # the threaded runtime through the CLI
+    out = os.path.join(root, "build", "smoke_async")
+    shutil.rmtree(out, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(base + ["--async-pipeline", "--out", out])
+    if rc != 0:
+        raise AssertionError(f"run.main --async-pipeline: exit code {rc}")
+    results.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
+    if not (results[-1]["keyframes"] >= 3 and "dropped_frames" in results[-1]):
+        raise AssertionError(f"CLI --async-pipeline: {results[-1]}")
     for r in results:
         for key in ("frames", "keyframes", "loops", "scans_per_sec", "degenerate_frames", "out",
                     "ate_rmse_optimized", "ate_rmse_odometry"):
             if key not in r:
                 raise AssertionError(f"CLI result lacks {key}: {r}")
     return results
+
+
+def stream_sync(torch, dev):
+    """Wait for the calling thread's current stream (not the device)."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def timed(torch, dev, fn, sink):
+    """fn, with each call's ms (to its stream's end) appended to sink."""
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        stream_sync(torch, dev)
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def async_phase(torch, dev, cfg, scans, sync_stats, counters, fused):
+    """(d1): AsyncSlamPipeline over scans fed at once, held against the
+    sync drive's odometry and keyframe count on the same frames; returns
+    (stats, launches)."""
+    from scaloam_tpu_torch.runtime.pipeline import AsyncSlamPipeline
+
+    topo = cfg.replace(runtime=dataclasses.replace(cfg.runtime, fused_frontend=fused))
+    pipe = AsyncSlamPipeline(topo, drop_backlog=False, device=dev)
+    if pipe.fused != fused:
+        raise AssertionError(f"async topology: fused {pipe.fused}, want {fused}")
+    pipe.start()
+    for counter in counters:
+        counter.launches = 0
+    t0 = time.perf_counter()
+    for i, pts in enumerate(scans):
+        pipe.feed(SENSOR_PERIOD_S * i, pts)
+    pipe.finish()
+    wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    n = len(scans)
+    odom = np.stack([x for _, x in pipe.odom_results]) if pipe.odom_results else np.zeros((0, 3))
+    err = float(np.abs(odom - sync_stats["odom_first"][:n]).max()) if len(odom) == n else None
+    stats = {"topology": "fused" if fused else "separate", "frames": n, "wall_s": wall,
+             "dropped_frames": pipe.dropped_frames, "odom_results": len(pipe.odom_results),
+             "mapped_results": len(pipe.mapped_results), "keyframes": len(pipe.sys.keyframes),
+             "sync_keyframes": sync_stats["keyframes_first"], "max_odom_err_m": err,
+             "workers_alive": pipe.workers_alive}
+    if not (pipe.dropped_frames == 0 and len(pipe.odom_results) == n
+            and len(pipe.mapped_results) == n and pipe.workers_alive == 0
+            and len(pipe.sys.keyframes) == sync_stats["keyframes_first"]
+            and err is not None and err <= ASYNC_ODOM_TOL_M):
+        raise AssertionError(f"async {stats['topology']}: {stats}")
+    return stats, launches
+
+
+def realtime_phase(torch, dev, cfg, scans, gt, counters):
+    """(d2): the fused pipeline over the whole drive, fed at the sensor
+    period; returns (stats, launches)."""
+    from scaloam_tpu_torch.models import posegraph
+    from scaloam_tpu_torch.runtime.pipeline import AsyncSlamPipeline
+    from scaloam_tpu_torch.utils.evaluation import ate_rmse
+
+    pipe = AsyncSlamPipeline(cfg, device=dev)
+    if not pipe.fused:
+        raise AssertionError("the real-time drive runs the fused topology")
+    pipe.start()
+    opt_ms, icp_ms = [], []
+    orig_opt = posegraph.optimize
+    posegraph.optimize = timed(torch, dev, orig_opt, opt_ms)
+    pipe.sys._icp_verify = timed(torch, dev, pipe.sys._icp_verify, icp_ms)
+    for counter in counters:
+        counter.launches = 0
+    try:
+        t0 = time.perf_counter()
+        for i, pts in enumerate(scans):
+            time.sleep(max(0.0, t0 + SENSOR_PERIOD_S * i - time.perf_counter()))
+            pipe.feed(SENSOR_PERIOD_S * i, pts)
+        t_fed = time.perf_counter() - t0
+        pipe.finish(timeout=600.0)
+        wall = time.perf_counter() - t0
+    finally:
+        posegraph.optimize = orig_opt
+    launches = [c.launches for c in counters]
+    n = len(scans)
+    s = pipe.sys
+    est, odom = s.optimized_poses(), s.odometry_keyframe_poses()
+    gt_rel = np.stack([np.linalg.inv(gt[0]) @ g for g in gt])
+    gt_kf = gt_rel[[kf.frame for kf in s.keyframes]]
+    ate = ate_rmse(est, gt_kf) if len(est) > 2 else None
+    stats = {
+        "frames": n, "fed_s": t_fed, "wall_s": wall, "scans_per_sec": n / wall,
+        "dropped_frames": pipe.dropped_frames, "odom_results": len(pipe.odom_results),
+        "mapped_results": len(pipe.mapped_results), "keyframes": len(s.keyframes),
+        "loops": s.loops_found, "ate_opt_m": ate,
+        "ate_odom_m": ate_rmse(odom, gt_kf) if len(odom) > 2 else None,
+        "workers_alive": pipe.workers_alive,
+        "optimise_calls": len(opt_ms), "optimise_ms_first": opt_ms[0] if opt_ms else None,
+        "optimise_ms_median": float(np.median(opt_ms)) if opt_ms else None,
+        "icp_calls": len(icp_ms), "icp_ms_median": float(np.median(icp_ms)) if icp_ms else None,
+        "stage_busy_s": dict(pipe.stage_busy), "stage_frames": dict(pipe.stage_frames),
+        "frontend_ms_per_frame": (1e3 * pipe.stage_busy["frontend"]
+                                  / max(pipe.stage_frames["frontend"], 1)),
+    }
+    if not (pipe.workers_alive == 0 and len(pipe.odom_results) + pipe.scan_q.dropped == n
+            and s.loops_found and ate is not None and ate < SYS_ATE_MAX_M):
+        raise AssertionError(f"real-time drive: {stats}")
+    return stats, launches
+
+
+def deskew_phase(torch, dev, scans, gt, counters):
+    """(e): features + odometry_step over the skewed frames with distortion
+    off and on; returns {mode: stats}. Error: mean |rel translation - ground
+    truth's forward hop| over frames 2..n-2 (tests/test_deskew.py)."""
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.models import odometry
+    from scaloam_tpu_torch.ops import features
+    from scaloam_tpu_torch.types import LidarScan
+
+    base = config.kitti_hdl64()
+    out = {}
+    for distortion in (False, True):
+        cfg = base.replace(odometry=dataclasses.replace(base.odometry, distortion=distortion))
+        state = odometry.init_state(cfg, dev)
+        for counter in counters:
+            counter.launches = 0
+        errs, ms = [], []
+        for i, pts in enumerate(scans):
+            scan = LidarScan.from_numpy(pts, cfg.sensor.max_points, dev)
+            stream_sync(torch, dev)
+            t0 = time.perf_counter()
+            state, o = odometry.odometry_step(state, features.extract_features(scan, cfg), cfg)
+            rel = o.rel.trans.cpu().numpy()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if 2 <= i < len(scans) - 1:
+                errs.append(float(np.linalg.norm(rel - (np.linalg.inv(gt[i]) @ gt[i + 1])[:3, 3])))
+        out["deskew" if distortion else "plain"] = {
+            "mean_rel_err_m": float(np.mean(errs)),
+            "ms_per_frame_median": float(np.median(ms[2:])),
+            "launches": [c.launches for c in counters]}
+    d, p = out["deskew"]["mean_rel_err_m"], out["plain"]["mean_rel_err_m"]
+    if not (d < DESKEW_MAX_ERR_M and d < DESKEW_VS_PLAIN * p):
+        raise AssertionError(f"de-skew: {out}")
+    want = {"deskew": [len(scans), 0, 0], "plain": [len(scans), len(scans) - 1, 0]}
+    if any(out[k]["launches"] != want[k] for k in want):
+        raise AssertionError(f"de-skew launches {out}, want K1/K2 A/K2 B {want}")
+    return out
 
 
 def main() -> int:
@@ -481,13 +669,14 @@ def main() -> int:
     pool = multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
     try:
         drive = pool.map_async(_scan_job, range(SYS_FRAMES))
-        return _main(torch, drive)
+        skewed = pool.apply_async(_deskew_scans)
+        return _main(torch, drive, skewed)
     finally:
         pool.terminate()
         pool.join()
 
 
-def _main(torch, drive) -> int:
+def _main(torch, drive, skewed) -> int:
     t_script = time.perf_counter()
 
     from scaloam_tpu_torch import config
@@ -770,7 +959,38 @@ def _main(torch, drive) -> int:
     cli = cli_phase(os.getcwd())
     log(f"cli: {json.dumps(cli[0])}")
     log(f"cli resumed: {json.dumps(cli[1])}")
+    log(f"cli --async-pipeline: {json.dumps(cli[2])}")
     log(f"phase wall: (c) CLI {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (d1) the threaded runtime, both topologies, against (b)
+    want = {"K1": ASYNC_FRAMES, "K2 A": ASYNC_FRAMES - 1,
+            "K2 B": sys_cfg.mapping.outer_iterations * ASYNC_FRAMES}
+    for fused in (True, False):
+        t_phase = time.perf_counter()
+        st, got = async_phase(torch, dev, sys_cfg, scans[:ASYNC_FRAMES], sys_stats, counters, fused)
+        got = dict(zip(("K1", "K2 A", "K2 B"), got))
+        if got != want:
+            raise AssertionError(f"async {st['topology']} launches {got}, want {want}")
+        log(f"(d1) async {st['topology']}: {json.dumps(st)}, launches {got}")
+        log(f"phase wall: (d1) async {st['topology']} {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (d2) the fused runtime at the sensor's rate over the whole drive
+    t_phase = time.perf_counter()
+    rt, got = realtime_phase(torch, dev, sys_cfg, scans, sys_gt, counters)
+    log(f"(d2) real time: {json.dumps(rt)}, launches {dict(zip(('K1', 'K2 A', 'K2 B'), got))}")
+    log(f"(d2) {rt['scans_per_sec']:.2f} scans/s, {rt['dropped_frames']} dropped, front end "
+        f"{rt['frontend_ms_per_frame']:.2f} ms/frame busy, optimise {rt['optimise_calls']} calls "
+        f"(first {rt['optimise_ms_first']:.1f} ms, median {rt['optimise_ms_median']:.1f} ms), "
+        f"ICP {rt['icp_calls']} calls, loops {len(rt['loops'])}, ATE {rt['ate_opt_m']:.4f} m, "
+        f"gate_wait {rt['stage_busy_s']['gate_wait']:.2f} s")
+    log(f"phase wall: (d2) real time {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (e) de-skew on skewed full-width frames
+    t_phase = time.perf_counter()
+    sk_scans, sk_gt = skewed.get()
+    dk = deskew_phase(torch, dev, sk_scans, sk_gt, counters)
+    log(f"(e) de-skew: {json.dumps(dk)} (launches K1, K2 A, K2 B)")
+    log(f"phase wall: (e) de-skew {time.perf_counter() - t_phase:.1f} s")
     log(f"script wall: {time.perf_counter() - t_script:.1f} s")
 
     gn_src = "scaloam_tpu_torch/csrc/gn_odometry.cu"

@@ -7,8 +7,11 @@ iterations; the world pose integrates the frame-to-frame estimate and the
 current less-sharp / less-flat clouds become the next frame's targets.
 
 The reference's `lax.cond` on `initialized` is a branch on a host bool kept
-in the state. The de-skew path (`distortion=True`, off in every preset) is
-not ported.
+in the state. With `distortion=True` (the reference's DISTORTION mode, off
+in every preset) each point is de-skewed by the slerp-interpolated pose at
+its sweep fraction: K2 is gated off as the reference gates its kernel off,
+the re-rank and the per-iteration slerp factors run as plain PyTorch, and
+the republished clouds are moved to the sweep's end (TransformToEnd).
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def _sweep_candidates(rel: Pose, feats: ScanFeatures, state: OdometryState,
     ocfg = cfg.odometry
 
     def sweep(q_cloud, t_cloud, want_same):
-        q = residuals.transform_points(rel, q_cloud.xyz)
+        s = q_cloud.rel_time if ocfg.distortion else None
+        q = residuals.transform_points(rel, q_cloud.xyz, s=s)
         iota = torch.arange(t_cloud.xyz.shape[0], dtype=torch.float32, device=q.device)
         payload = torch.cat([t_cloud.xyz, t_cloud.ring[:, None], iota[:, None]], dim=1)
         _, P = voxel.knn2_payload(q, q_cloud.mask, t_cloud.xyz, t_cloud.mask, payload, tile=8192)
@@ -97,15 +101,17 @@ def _pick1(q: torch.Tensor, cand: torch.Tensor):
 
 
 def _associate(rel: Pose, c_xyz, c_mask, s_xyz, s_mask, corner_cand,
-               surf_cand, thr: float):
-    """One data-association pass: re-rank the cached candidates at `rel`.
-    Returns corner_data (p, a, b, valid) and surf_data (p, j, l, m, valid)."""
-    q_pts = residuals.transform_points(rel, c_xyz)
+               surf_cand, thr: float, c_time=None, s_time=None):
+    """One data-association pass: re-rank the cached candidates at `rel`,
+    each point de-skewed by its sweep fraction when c_time / s_time are
+    given. Returns corner_data (p, a, b, valid) and surf_data
+    (p, j, l, m, valid)."""
+    q_pts = residuals.transform_points(rel, c_xyz, s=c_time)
     dj, a = _pick1(q_pts, corner_cand[0])
     do, b = _pick1(q_pts, corner_cand[1])
     corner_valid = c_mask & (dj < thr) & (do < thr)
 
-    qs_pts = residuals.transform_points(rel, s_xyz)
+    qs_pts = residuals.transform_points(rel, s_xyz, s=s_time)
     sdj, j = _pick1(qs_pts, surf_cand[0])
     ds, l = _pick1(qs_pts, surf_cand[1])
     do2, m = _pick1(qs_pts, surf_cand[2])
@@ -132,14 +138,56 @@ def _solve(rel: Pose, corner_data, surf_data, gn_iterations: int,
     return gn.gauss_newton(rel, build, gn_iterations, huber_delta, damping)
 
 
+def _solve_deskew(rel: Pose, corner_data, surf_data, c_time, s_time,
+                  gn_iterations: int, huber_delta: float) -> Pose:
+    """GN with the slerp factors, relinearized per iteration (the per-point
+    rotation leaves nothing pose-independent to prepare)."""
+    p_c, a, b, v_c = corner_data
+    p_s, j, l, m, v_s = surf_data
+    pcT, aT, bT = p_c.T, a.T, b.T
+    psT, jT, lT, mT = p_s.T, j.T, l.T, m.T
+
+    def build(pose):
+        return [
+            residuals.edge_factors_T(pose, pcT, aT, bT, v_c, s=c_time),
+            residuals.plane3_factors_T(pose, psT, jT, lT, mT, v_s, s=s_time),
+        ]
+
+    return gn.gauss_newton(rel, build, gn_iterations, huber_delta)
+
+
+def _deskew_solve(rel: Pose, feats: ScanFeatures, corner_cand, surf_cand, ocfg):
+    """The outer association passes with de-skew, in plain PyTorch (the
+    reference runs no kernel here). Returns (rel, n_corner, n_surf)."""
+    sharp, flat = feats.sharp, feats.flat
+    for _ in range(ocfg.outer_iterations):
+        corner_data, surf_data = _associate(
+            rel, sharp.xyz, sharp.mask, flat.xyz, flat.mask, corner_cand, surf_cand,
+            ocfg.distance_sq_threshold, c_time=sharp.rel_time, s_time=flat.rel_time)
+        rel = _solve_deskew(rel, corner_data, surf_data, sharp.rel_time, flat.rel_time,
+                            ocfg.gn_iterations, ocfg.huber_delta)
+    n_c = torch.sum(corner_data[3]).to(torch.int32)
+    n_s = torch.sum(surf_data[4]).to(torch.int32)
+    return rel, n_c, n_s
+
+
+def _to_end(rel: Pose, fc: FeatureCloud) -> FeatureCloud:
+    """TransformToEnd (src/laserOdometry.cpp:131-146): de-skew to the sweep
+    start, then move into the frame of the sweep's end."""
+    p_start = residuals.transform_points(rel, fc.xyz, s=fc.rel_time)
+    return fc._replace(xyz=se3.apply(se3.inverse(rel), p_start))
+
+
 def odometry_step(state: OdometryState, feats: ScanFeatures, cfg: SlamConfig):
     """Process one feature frame; returns (new_state, OdometryOutput)."""
     ocfg = cfg.odometry
-    if ocfg.distortion:
-        raise NotImplementedError("the de-skew (distortion=True) path is not ported")
     dev = feats.sharp.xyz.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    if state.initialized:
+    if state.initialized and ocfg.distortion:
+        corner_cand, surf_cand = _sweep_candidates(state.rel, feats, state, cfg)
+        rel, n_c, n_s = _deskew_solve(state.rel, feats, corner_cand, surf_cand, ocfg)
+        degenerate = (n_c + n_s) < ocfg.min_correspondences
+    elif state.initialized:
         corner_cand, surf_cand = _sweep_candidates(state.rel, feats, state, cfg)
         q, t, n_c, n_s = gn_odometry.associate_and_solve(
             feats.sharp.xyz, corner_cand[0], corner_cand[1], feats.sharp.mask,
@@ -158,9 +206,13 @@ def odometry_step(state: OdometryState, feats: ScanFeatures, cfg: SlamConfig):
         degenerate = torch.zeros((), dtype=torch.bool, device=dev)
 
     world = se3.compose(state.world, rel)
+    less_sharp, less_flat = feats.less_sharp, feats.less_flat
+    if ocfg.distortion:
+        # The next frame matches against clouds moved to this sweep's end.
+        less_sharp, less_flat = _to_end(rel, less_sharp), _to_end(rel, less_flat)
     new_state = OdometryState(
-        last_corner=feats.less_sharp,
-        last_surf=feats.less_flat,
+        last_corner=less_sharp,
+        last_surf=less_flat,
         rel=rel,
         world=world,
         initialized=True,

@@ -112,17 +112,29 @@ class SCManager:
         self.db = append_descriptor(self.db, sc, count=self._n)
         self._n += 1
 
+    def detect_loop_closure_dispatch(self):
+        """The device triple (idx, yaw, dist) of loop detection for the
+        latest descriptor, unread, or None while the database is too small.
+        The async runtime dispatches under its system lock (no append may
+        run between) and reads outside it."""
+        if self._n < self.cfg.num_exclude_recent + 1:
+            return None
+        return detect_latest(self.db, self.cfg)
+
     def detect_loop_closure_id(self) -> Tuple[int, float, float]:
         """(loop index or -1, yaw, distance): one device-to-host read."""
-        if self._n < self.cfg.num_exclude_recent + 1:
+        out = self.detect_loop_closure_dispatch()
+        if out is None:
             return -1, 0.0, float("inf")
-        idx, yaw, dist = detect_latest(self.db, self.cfg)
-        idx, yaw, dist = torch.stack([idx.to(torch.float64), yaw.to(torch.float64),
-                                      dist.to(torch.float64)]).tolist()
-        return int(idx), yaw, dist
+        return read_triple(out)
 
     def detect_between_session(self, query_sc) -> Tuple[int, float, float]:
-        idx, yaw, dist = detect(self.db, query_sc, self.cfg, exclude_recent=False)
-        idx, yaw, dist = torch.stack([idx.to(torch.float64), yaw.to(torch.float64),
-                                      dist.to(torch.float64)]).tolist()
-        return int(idx), yaw, dist
+        return read_triple(detect(self.db, query_sc, self.cfg, exclude_recent=False))
+
+
+def read_triple(out) -> Tuple[int, float, float]:
+    """A device (idx, yaw, dist) triple as host numbers, in one read."""
+    idx, yaw, dist = out
+    idx, yaw, dist = torch.stack([idx.to(torch.float64), yaw.to(torch.float64),
+                                  dist.to(torch.float64)]).tolist()
+    return int(idx), yaw, dist

@@ -1,6 +1,6 @@
 """Batched Gauss-Newton on SE(3) (counterpart of scaloam_tpu/ops/gn.py).
 
-Normal equations are accumulated over all SoA factors at once; a robust
+Normal equations are accumulated over all factors at once (SoA or AoS); a robust
 Huber reweight per factor block, a fixed iteration count and a tiny
 diagonal damping replace Ceres' DENSE_QR solve.
 """
@@ -26,13 +26,27 @@ def huber_weight(sq_norm: torch.Tensor, delta: float) -> torch.Tensor:
 def normal_equations(
     factor_sets: Sequence[res_mod.FactorSetT], huber_delta: float | None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Accumulate JtJ [6,6], Jtr [6] and total weighted cost over SoA
-    factor sets (r [R, n], J [R, 6, n])."""
+    """Accumulate JtJ [6,6], Jtr [6] and total weighted cost over factor
+    sets, SoA (FactorSetT: r [R, n], J [R, 6, n]) or AoS (FactorSet:
+    r [n, R], J [n, R, 6])."""
     dev = factor_sets[0].r.device
     JtJ = torch.zeros((6, 6), dtype=torch.float32, device=dev)
     Jtr = torch.zeros((6,), dtype=torch.float32, device=dev)
     cost = torch.zeros((), dtype=torch.float32, device=dev)
     for fs in factor_sets:
+        if isinstance(fs, res_mod.FactorSet):
+            vm = fs.valid[:, None]
+            r = torch.where(vm, fs.r, 0.0)
+            J = torch.where(vm[..., None], fs.J, 0.0)
+            s = torch.sum(r * r, dim=-1)
+            w = fs.valid.to(torch.float32)
+            if huber_delta is not None:
+                w = w * huber_weight(s, huber_delta)
+            Jw = J * w[:, None, None]
+            JtJ = JtJ + torch.einsum("nri,nrj->ij", Jw, J)
+            Jtr = Jtr + torch.einsum("nri,nr->i", Jw, r)
+            cost = cost + torch.sum(w * s)
+            continue
         # where, not multiply: degenerate rows can carry NaN/inf and
         # 0 * NaN would poison the sums.
         vm = fs.valid[None, :]

@@ -5,7 +5,9 @@ its own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds) and loaded with ctypes. All sources build in parallel,
 one nvcc each, into `build/kernels/` beside the package; a library's file
 name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.
+rebuilt and an unchanged one is reused. `build` and `library` are safe to
+call from several threads of one process: one lock serialises them, and
+each build writes a temporary file named by process and thread.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -29,6 +32,7 @@ FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()  # guards _loaded and the files in BUILD_DIR
 
 
 def nvcc_path() -> str:
@@ -53,13 +57,18 @@ def build(names=SOURCES) -> Dict[str, str]:
     processes started together. Returns {name: compiler output} for the
     sources built now (ptxas register/shared-memory report). Raises with
     the compiler's output if any build fails."""
+    with _lock:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -80,12 +89,16 @@ def build(names=SOURCES) -> Dict[str, str]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, building it first if needed."""
     lib = _loaded.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build((name,))
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                _build_locked((name,))
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
     return lib
 
 

@@ -1,16 +1,18 @@
-"""Lidar residuals with analytic Jacobians, SoA layout
-(counterpart of the s=None factor functions in scaloam_tpu/ops/residuals.py).
+"""Lidar residuals with analytic Jacobians (counterpart of
+scaloam_tpu/ops/residuals.py).
 
 Pose (q, t) maps p to p' = R(q) p + t; the perturbation (dtheta, dt) acts
-as q <- q * Exp(dtheta), t <- t + dt. Factor data is [3, n] (one column
-per correspondence); each factor function returns r [R, n], J [R, 6, n]
-and valid [n]. The de-skew (slerp) factor functions are not ported: the
-port's odometry refuses `distortion=True`.
+as q <- q * Exp(dtheta), t <- t + dt. The hot-path builders are SoA:
+factor data is [3, n] (one column per correspondence) and each returns
+r [R, n], J [R, 6, n] and valid [n]. With per-point de-skew fractions s
+(the reference's DISTORTION mode) the pose is slerp-interpolated per point.
+The AoS builders ([n, 3] data, r [n, R], J [n, R, 6]) keep the reference's
+per-point 3x3 form.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -20,15 +22,86 @@ from scaloam_tpu_torch.types import Pose
 _EPS = 1e-9
 
 
+class FactorSet(NamedTuple):
+    r: torch.Tensor  # [n, R]
+    J: torch.Tensor  # [n, R, 6]
+    valid: torch.Tensor  # [n] bool
+
+
 class FactorSetT(NamedTuple):
     r: torch.Tensor  # [R, n]
     J: torch.Tensor  # [R, 6, n]
     valid: torch.Tensor  # [n] bool
 
 
-def transform_points(pose: Pose, pts: torch.Tensor) -> torch.Tensor:
-    """TransformToStart with DISTORTION off: the full pose."""
-    return se3.apply(pose, pts)
+def _point_jacobian(q: torch.Tensor, p: torch.Tensor):
+    """R p and d(Rp)/d(dtheta) = -R [p]x for each point."""
+    return se3.quat_rotate(q, p), -torch.matmul(se3.quat_to_mat(q), se3.hat(p))
+
+
+def _slerp_quats(pose: Pose, s: torch.Tensor) -> torch.Tensor:
+    """slerp(I, q, s) for each fraction s [n] -> [n, 4]."""
+    q = pose.quat.expand(s.shape + (4,))
+    ident = torch.zeros_like(q)
+    ident[..., 0] = 1.0
+    return se3.quat_slerp(ident, q, s[..., None])
+
+
+def transform_points(pose: Pose, pts: torch.Tensor, s: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """TransformToStart (src/laserOdometry.cpp:111-129): de-skew by the
+    slerp-interpolated pose; s=None (DISTORTION off) applies the full pose."""
+    if s is None:
+        return se3.apply(pose, pts)
+    return se3.quat_rotate(_slerp_quats(pose, s), pts) + s[..., None] * pose.trans
+
+
+def edge_factors(pose: Pose, p, a, b, valid) -> FactorSet:
+    """Point-to-line r = (p' - a) x (p' - b) / |a - b| (LidarEdgeFactor,
+    src/lidarFactor.hpp:12-55), dr/dp' = -[a-b]x / |a-b|."""
+    n = p.shape[0]
+    Rp, J_theta = _point_jacobian(pose.quat.expand(n, 4), p)
+    pw = Rp + pose.trans
+    d = a - b
+    dn = torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=_EPS)
+    r = se3.cross(pw - a, pw - b) / dn
+    dr_dpw = -se3.hat(d) / dn[..., None]
+    J = torch.cat([torch.matmul(dr_dpw, J_theta), dr_dpw], dim=-1)
+    return FactorSet(r=r, J=J, valid=valid)
+
+
+def plane3_factors(pose: Pose, p, j, l, m, valid) -> FactorSet:
+    """Point-to-plane through 3 points, r = (p' - j) . normalize((j-l)x(j-m))
+    (LidarPlaneFactor, src/lidarFactor.hpp:57-104)."""
+    n = p.shape[0]
+    Rp, J_theta = _point_jacobian(pose.quat.expand(n, 4), p)
+    pw = Rp + pose.trans
+    nrm = se3.cross(j - l, j - m)
+    nrm = nrm / torch.clamp(torch.linalg.norm(nrm, dim=-1, keepdim=True), min=_EPS)
+    r = torch.sum((pw - j) * nrm, dim=-1, keepdim=True)
+    J_rot = torch.einsum("ni,nij->nj", nrm, J_theta)
+    return FactorSet(r=r, J=torch.cat([J_rot, nrm], dim=-1)[:, None, :], valid=valid)
+
+
+def plane_norm_factors(pose: Pose, p, unit_norm, neg_oa_dot, valid) -> FactorSet:
+    """Point-to-plane r = n . p' + d (LidarPlaneNormFactor,
+    src/lidarFactor.hpp:106-138)."""
+    n = p.shape[0]
+    Rp, J_theta = _point_jacobian(pose.quat.expand(n, 4), p)
+    pw = Rp + pose.trans
+    r = (torch.sum(unit_norm * pw, dim=-1) + neg_oa_dot)[:, None]
+    J_rot = torch.einsum("ni,nij->nj", unit_norm, J_theta)
+    return FactorSet(r=r, J=torch.cat([J_rot, unit_norm], dim=-1)[:, None, :], valid=valid)
+
+
+def distance_factors(pose: Pose, p, closed, valid) -> FactorSet:
+    """Point-to-point r = p' - c (LidarDistanceFactor,
+    src/lidarFactor.hpp:141-172)."""
+    n = p.shape[0]
+    Rp, J_theta = _point_jacobian(pose.quat.expand(n, 4), p)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(n, 3, 3)
+    return FactorSet(r=Rp + pose.trans - closed, J=torch.cat([J_theta, eye], dim=-1),
+                     valid=valid)
 
 
 def _cross_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,6 +118,18 @@ def _cross_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _col_norm(v: torch.Tensor) -> torch.Tensor:
     """Euclidean norm of each column of [3, n]."""
     return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+
+def _slerp_cols(pose: Pose, pT: torch.Tensor, s: torch.Tensor):
+    """Per-point slerp-s pose pieces of the de-skew factors
+    (src/lidarFactor.hpp:26-34): (q_s [n, 4], w = R_s p [3, n], the columns
+    of R_s as 3 x [3, n])."""
+    n = pT.shape[1]
+    q_s = _slerp_quats(pose, s)
+    w = se3.quat_rotate(q_s, pT.T).T
+    eye = torch.eye(3, dtype=pT.dtype, device=pT.device)
+    R_cols = [se3.quat_rotate(q_s, eye[k].expand(n, 3)).T for k in range(3)]
+    return q_s, w, R_cols
 
 
 class EdgePrepT(NamedTuple):
@@ -89,6 +174,25 @@ def edge_factors_from_prep(pose: Pose, prep: EdgePrepT) -> FactorSetT:
     return FactorSetT(r=r, J=J, valid=prep.valid)
 
 
+def edge_factors_T(pose: Pose, pT, aT, bT, valid, s: Optional[torch.Tensor] = None
+                   ) -> FactorSetT:
+    """Point-to-line r = (p'-a) x (p'-b) / |a-b|. With de-skew fractions s:
+    p' = R_s p + s t, R_s = slerp(I, q, s), and the Jacobian from
+    slerp(I, q exp(delta), s) ~= R_s exp(s delta), as the reference's."""
+    if s is None:
+        return edge_factors_from_prep(pose, edge_prep_T(pT, aT, bT, valid))
+    d = aT - bT
+    dn = torch.clamp(_col_norm(d), min=_EPS)[None, :]
+    e = torch.eye(3, dtype=pT.dtype, device=pT.device)
+    _, w, R_cols = _slerp_cols(pose, pT, s)
+    sc = s[None, :]
+    pw = w + sc * pose.trans[:, None]
+    r = _cross_rows(pw - aT, pw - bT) / dn
+    J_rot = [sc * _cross_rows(_cross_rows(R_cols[k], w), d) / dn for k in range(3)]
+    J_t = [sc * _cross_rows(e[:, k : k + 1].expand(d.shape), d) / dn for k in range(3)]
+    return FactorSetT(r=r, J=torch.stack(J_rot + J_t, dim=1), valid=valid)
+
+
 def plane3_prep_T(jT, lT, mT):
     """Unit normal and offset of the 3-point correspondence plane."""
     nrm = _cross_rows(jT - lT, jT - mT)
@@ -96,16 +200,34 @@ def plane3_prep_T(jT, lT, mT):
     return nrm, -torch.sum(jT * nrm, dim=0)
 
 
+def plane3_factors_T(pose: Pose, pT, jT, lT, mT, valid,
+                     s: Optional[torch.Tensor] = None) -> FactorSetT:
+    """Point-to-plane through 3 points, r = (p' - j) . normalize((j-l)x(j-m));
+    s: optional de-skew fractions (see edge_factors_T)."""
+    nrm, neg_d = plane3_prep_T(jT, lT, mT)
+    return _plane_T(pose, pT, nrm, neg_d, valid, s=s)
+
+
 def plane_norm_factors_T(pose: Pose, pT, unit_normT, neg_oa_dot, valid) -> FactorSetT:
     """Point-to-plane r = n . p' + d."""
     return _plane_T(pose, pT, unit_normT, neg_oa_dot, valid)
 
 
-def _plane_T(pose: Pose, pT, nT, neg_d, valid) -> FactorSetT:
-    R = se3.quat_to_mat(pose.quat)
-    pw = torch.matmul(R, pT) + pose.trans[:, None]
-    u = torch.matmul(R.T, nT)  # R^T n
+def _plane_T(pose: Pose, pT, nT, neg_d, valid, s: Optional[torch.Tensor] = None
+             ) -> FactorSetT:
+    if s is None:
+        R = se3.quat_to_mat(pose.quat)
+        pw = torch.matmul(R, pT) + pose.trans[:, None]
+        u = torch.matmul(R.T, nT)  # R^T n
+        J_rot = _cross_rows(pT, u)  # (p x R^T n)^T
+        J_n = nT
+    else:
+        q_s, w, _ = _slerp_cols(pose, pT, s)
+        sc = s[None, :]
+        pw = w + sc * pose.trans[:, None]
+        u = se3.quat_rotate(se3.quat_conj(q_s), nT.T).T  # R_s^T n per point
+        J_rot = sc * _cross_rows(pT, u)
+        J_n = sc * nT
     r = (torch.sum(nT * pw, dim=0) + neg_d)[None, :]
-    J_rot = _cross_rows(pT, u)  # (p x R^T n)^T
-    J = torch.cat([J_rot, nT], dim=0)[None, :, :]  # [1, 6, n]
+    J = torch.cat([J_rot, J_n], dim=0)[None, :, :]  # [1, 6, n]
     return FactorSetT(r=r, J=J, valid=valid)

@@ -119,6 +119,22 @@ def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, s) -> torch.Tensor:
+    """Spherical interpolation from q0 towards q1 by fraction s (a number
+    or a tensor broadcasting against [..., 1]): Eigen's slerp, which the
+    reference's motion de-skew uses (src/laserOdometry.cpp:122)."""
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.abs(d)
+    theta = torch.arccos(torch.clamp(d, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    safe = torch.where(small, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(small, 1.0 - s, torch.sin((1.0 - s) * theta) / safe)
+    w1 = torch.where(small, s * torch.ones_like(theta), torch.sin(s * theta) / safe)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
+
 def hat(v: torch.Tensor) -> torch.Tensor:
     """[..., 3] -> skew-symmetric [..., 3, 3]."""
     x, y, z = v.unbind(-1)

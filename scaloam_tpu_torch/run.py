@@ -11,8 +11,10 @@ Examples:
 
 It runs on `cuda` unless --device names another device (`--device cpu`
 runs the plain PyTorch versions); without a GPU and without --device it
-exits with code 2. The threaded runtime (--async-pipeline) and the second
-backend device (--backend-device) are not ported yet and exit with code 2.
+exits with code 2. --async-pipeline runs the threaded real-time runtime
+(runtime/pipeline.py) instead of the sync driver, and its result line adds
+`dropped_frames`. The second backend device (--backend-device) is not
+ported yet and exits with code 2.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use-gps", action="store_true", help="feed MulRan GPS altitude factors")
     p.add_argument("--resume", help="resume from a saved session directory")
     p.add_argument("--async-pipeline", action="store_true",
-                   help="threaded real-time pipeline (not ported yet)")
+                   help="threaded real-time pipeline instead of the sync driver")
     p.add_argument("--backend-device", type=int, default=None,
                    help="device index for the backend stage (not ported yet)")
     p.add_argument("--device", default=None,
@@ -59,9 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.async_pipeline or args.backend_device is not None:
-        flag = "--async-pipeline" if args.async_pipeline else "--backend-device"
-        print(f"{flag} is not ported yet", file=sys.stderr)
+    if args.backend_device is not None:
+        print("--backend-device is not ported yet", file=sys.stderr)
         return 2
 
     from scaloam_tpu_torch import config, device as device_mod
@@ -130,13 +131,26 @@ def main(argv=None) -> int:
     timer = StageTimer(budget_ms=cfg.runtime.stage_budget_ms)
     n = 0
     t_start = time.time()
-    for t, pts in frames:
-        with timer.stage("frame"):
-            sys_.process_scan(np.asarray(pts[:, :3], np.float32), time=t)
-        n += 1
-        if n % 50 == 0:
-            print(f"frame {n}: keyframes={len(sys_.keyframes)} loops={len(sys_.loops_found)} "
-                  f"mean={timer.mean_ms('frame'):.0f} ms", file=sys.stderr)
+    if args.async_pipeline:
+        # Threaded real-time pipeline: stages overlap, backlog drops under
+        # overload (the reference's live topology).
+        from scaloam_tpu_torch.runtime.pipeline import AsyncSlamPipeline
+
+        pipe = AsyncSlamPipeline(cfg, system=sys_)
+        pipe.start()
+        for t, pts in frames:
+            pipe.feed(t, np.asarray(pts[:, :3], np.float32))
+            n += 1
+        pipe.finish()
+    else:
+        for t, pts in frames:
+            with timer.stage("frame"):
+                sys_.process_scan(np.asarray(pts[:, :3], np.float32), time=t)
+            n += 1
+            if n % 50 == 0:
+                print(f"frame {n}: keyframes={len(sys_.keyframes)} "
+                      f"loops={len(sys_.loops_found)} "
+                      f"mean={timer.mean_ms('frame'):.0f} ms", file=sys.stderr)
     wall = time.time() - t_start
 
     # The odometry's degenerate-frame count, read once per run.
@@ -152,6 +166,8 @@ def main(argv=None) -> int:
         "scans_per_sec": round(n / max(wall, 1e-9), 2),
         "degenerate_frames": n_degen,
     }
+    if args.async_pipeline:
+        result["dropped_frames"] = pipe.dropped_frames
     if args.out:
         sys_.save_session(args.out)
         result["out"] = args.out

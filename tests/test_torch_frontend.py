@@ -35,7 +35,7 @@ from scaloam_tpu.utils import synthetic
 from scaloam_tpu_torch import config as tconfig, convert
 from scaloam_tpu_torch.models import frontend as tfront, mapping as tmap, odometry as todo
 from scaloam_tpu_torch.ops import features as tfeat
-from scaloam_tpu_torch.ops.kernels import selection as tsel
+from scaloam_tpu_torch.ops.kernels import gn_odometry, selection as tsel
 from scaloam_tpu_torch.types import LidarScan as TScan
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -248,6 +248,10 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "scaloam_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(p.relative_to(REPO)) for p in files}
+    for module in ("runtime/queues.py", "runtime/pipeline.py", "utils/metrics.py",
+                   "utils/viz.py", "utils/mapmerge.py", "io/native_loader.py"):
+        assert f"scaloam_tpu_torch/{module}" in names, module
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -262,9 +266,24 @@ def test_entry_points_require_a_device_without_gpu(monkeypatch):
         TScan.from_numpy(np.zeros((4, 3), np.float32), 8)
 
 
-def test_deskew_path_is_not_ported():
-    cfg = TCFG.replace(odometry=dataclasses.replace(TCFG.odometry, distortion=True))
-    state = todo.init_state(cfg, "cpu")
-    feats = tfeat.extract_features(_tscan(_scans(1)[0][0]), cfg)
-    with pytest.raises(NotImplementedError):
-        todo.odometry_step(state, feats, cfg)
+def test_deskew_path_is_not_ported(monkeypatch):
+    """The de-skew path (distortion=True), once refused, runs: K2 entry A is
+    gated off there as the reference gates its kernel off, and called with
+    distortion off (tests/test_torch_deskew.py holds the path to JAX)."""
+    calls = []
+    entry_a = gn_odometry.associate_and_solve
+
+    def spy(*a, **k):
+        calls.append(1)
+        return entry_a(*a, **k)
+
+    monkeypatch.setattr(gn_odometry, "associate_and_solve", spy)
+    scans = _scans(2)[0]
+    for distortion, want in ((True, 0), (False, 1)):
+        cfg = TCFG.replace(odometry=dataclasses.replace(TCFG.odometry, distortion=distortion))
+        state = todo.init_state(cfg, "cpu")
+        calls.clear()
+        for s in scans:
+            state, out = todo.odometry_step(state, tfeat.extract_features(_tscan(s), cfg), cfg)
+        assert len(calls) == want, distortion
+        assert np.isfinite(out.world.trans.numpy()).all() and float(out.n_surf_corr) > 0

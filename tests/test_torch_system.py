@@ -345,10 +345,24 @@ def test_entry_points_require_a_device_without_gpu(monkeypatch, capsys):
     assert "CUDA" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["--async-pipeline"], ["--backend-device", "1"]])
+@pytest.mark.parametrize("argv", [["--backend-device", "1"],
+                                  ["--backend-device", "1", "--async-pipeline"]])
 def test_cli_refuses_unported_modes(argv, capsys):
     assert trun.main(argv + ["--synthetic", "2", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_cli_async_pipeline_on_cpu(tmp_path, capsys):
+    """--async-pipeline runs the threaded runtime; its result line carries
+    dropped_frames, and the keyframes pair with their source frames."""
+    out = str(tmp_path / "sess")
+    argv = ["--preset", "vlp16", "--synthetic", "4", "--keyframe-gap", "0.5",
+            "--synthetic-radius", "25", "--device", "cpu", "--async-pipeline", "--out", out]
+    assert trun.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["frames"] == 4 and res["dropped_frames"] == 0 and res["keyframes"] >= 3
+    assert np.isfinite(res["ate_rmse_optimized"]) and res["ate_rmse_optimized"] < 0.1
+    assert len(np.loadtxt(os.path.join(out, "times.txt"))) == res["keyframes"]
 
 
 def test_cli_needs_a_data_source(capsys):
