@@ -35,7 +35,24 @@ to 0 just before it and read just after:
   at least one loop verified and the optimised keyframes' ATE;
 - (e) the de-skew path: 8 skewed full-width frames (accelerating, the
   reference's tests/test_deskew.py scene) through features + odometry_step
-  with distortion off and on; de-skewed error bounds, K2 entry A gated off.
+  with distortion off and on; de-skewed error bounds, K2 entry A gated off;
+- (f1) the multi-device layer (scaloam_tpu_torch.parallel) in a world of
+  one over NCCL in this process: sharded ScanContext retrieval over
+  mulran_os1_64's 8192-slot database, sharded grid k-NN over (b)'s
+  mapping grids with one frame's mapping inputs, optimize_sharded on
+  (a)'s 8192-node chain, each against its single-device version, with
+  the all_reduce count and bytes of one optimise;
+- (f2) spawned ranks on the one card over gloo with CUDA tensors (NCCL
+  refuses two ranks of one communicator on a card): a 1-D world of 2 and
+  the 2-D (seq 2, kf 2) world of 4, each running the same three sharded
+  functions against (f1)'s single-device results and the multi-sequence
+  front end over 2 full-width sequences of 8 frames of (b)'s drive
+  (mapped poses against the one-sequence-at-a-time run, launch counts
+  per rank), and the world of 4 the dry run at full width;
+- (f3), beside (f2): SlamSystem with a backend device (cuda:1 where there
+  is one, else cuda:0) over (b)'s first 32 frames, held against (b); the
+  CLI with --backend-device 0, sync and --async-pipeline, and with an
+  index past the cards (exit code 2).
 
 The last three lines of standard output are the kernel table (JSON, with
 the launches of the system drive), the card's name and power limit, and
@@ -90,6 +107,20 @@ SENSOR_PERIOD_S = 0.1
 DESKEW_FRAMES = 8
 DESKEW_MAX_ERR_M = 0.06
 DESKEW_VS_PLAIN = 0.55
+# (f) the multi-device layer: mulran_os1_64's ScanContext capacity, filled
+# in part; two sequences of (b)'s drive; the ranks' deadline; (f3)'s
+# frames of (b) and the tolerances.
+F_SC_SLOTS = 8192
+F_SC_FILLED = 6000
+F_SC_QUERY = 1234  # the query is this descriptor plus noise
+F_SEQ_STARTS = (0, 80)
+F_SEQ_FRAMES = 8
+F_RANK_TIMEOUT_S = 420
+F_WORLDS = (2, 4)  # a 1-D world of 2 and the 2-D (seq 2, kf 2) world of 4
+F_BACKEND_FRAMES = 32
+F_PGO_TOL_M = 5e-3  # the sums run in another order (tests/test_parallel.py)
+F_SEQ_TOL_M = 1e-5
+F_SAME_TOL_M = 1e-5  # (f3) against (b): the same kernels on the same card
 
 
 def log(*a):
@@ -384,7 +415,8 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
     s.sc.make_and_save = stages["sc make"]
     s.sc.detect_loop_closure_id = stages["sc detect"]
     s._icp_verify = stages["icp verify"]
-    frame_ms, frame_syncs, kf_flags, odom_first = [], [], [], []
+    frame_ms, frame_syncs, kf_flags, odom_first, mapped_first = [], [], [], [], []
+    snapshot = None
     for counter in launch_counters:
         counter.launches = 0
     try:
@@ -398,6 +430,10 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
                 kf_flags.append(r.is_keyframe)
                 if i < ASYNC_FRAMES:
                     odom_first.append(r.odom_pose.trans)
+                if i < F_BACKEND_FRAMES:
+                    mapped_first.append(torch.cat([r.mapped_pose.quat, r.mapped_pose.trans]))
+                if i == F_BACKEND_FRAMES - 1:  # for (f3), outside the frame's time
+                    snapshot = (s.optimized_poses(), list(s.loops_found))
         torch.cuda.synchronize()
     finally:
         pipeline._prepare_keyframe, posegraph.add_keyframe, posegraph.optimize = orig
@@ -430,6 +466,10 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
         "stages": {k: v.summary() for k, v in stages.items()},
         "odom_first": torch.stack(odom_first).cpu().numpy(),
         "keyframes_first": int(np.sum(kf[:ASYNC_FRAMES])),
+        "first_frames": {"mapped": torch.stack(mapped_first).cpu().numpy(),
+                         "keyframe": kf[:F_BACKEND_FRAMES].tolist(),
+                         "optimized": snapshot[0], "loops": snapshot[1]},
+        "system": s,
     }
     return stats
 
@@ -654,6 +694,370 @@ def deskew_phase(torch, dev, scans, gt, counters):
     if any(out[k]["launches"] != want[k] for k in want):
         raise AssertionError(f"de-skew launches {out}, want K1/K2 A/K2 B {want}")
     return out
+
+
+def _sc_case(torch, dev):
+    """(f) ScanContext retrieval at mulran_os1_64's settings: F_SC_FILLED
+    random descriptors in F_SC_SLOTS slots and, as the query, one of them
+    turned by 7 sectors plus noise. Returns (descriptors, ring keys, count,
+    query)."""
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.ops import scancontext as sc_ops
+
+    cfg = config.mulran_os1_64().scancontext
+    rng = np.random.default_rng(11)
+    desc = np.zeros((F_SC_SLOTS, cfg.num_ring, cfg.num_sector), np.float32)
+    desc[:F_SC_FILLED] = rng.uniform(0, 5, size=(F_SC_FILLED, cfg.num_ring, cfg.num_sector))
+    query = np.roll(desc[F_SC_QUERY], 7, axis=1) + rng.normal(0, 0.05, desc.shape[1:])
+    d = torch.from_numpy(desc).to(dev)
+    return (d, sc_ops.ring_key(d), torch.tensor(F_SC_FILLED, device=dev),
+            torch.from_numpy(query.astype(np.float32)).to(dev))
+
+
+def _grid_queries(torch, system):
+    """(f) The mapping grids as (b)'s drive leaves them and, as queries,
+    one frame's mapping inputs: the last frame's republished corner / surf
+    clouds, voxel filtered as mapping_step filters them, at the last
+    mapped pose. Returns {name: (grid, query, query mask)}."""
+    from scaloam_tpu_torch.ops import se3, voxel
+
+    m = system.cfg.mapping
+    out = {}
+    for name, cloud, res, cap, grid in (
+            ("corner", system.o_state.last_corner, m.line_resolution, m.max_corner_input,
+             system.m_state.corner_grid),
+            ("surf", system.o_state.last_surf, m.plane_resolution, m.max_surf_input,
+             system.m_state.surf_grid)):
+        xyz, mask, _ = voxel.voxel_downsample_packed(cloud.xyz, cloud.mask, res, cap,
+                                                     xy_bits=10, z_bits=9)
+        out[name] = (grid, se3.apply(system.m_state.pose, xyz), mask)
+    return out
+
+
+def _knn_args(cfg):
+    """mapping_step's candidate gather (models/mapping.py)."""
+    m = cfg.mapping
+    return dict(gx=m.grid_xy, gy=m.grid_xy, gz=m.grid_z, cell_size=m.cell_size, reach=1.0,
+                k=max(8, m.knn))
+
+
+def _pgo_cfg():
+    """(f) Phase (a)'s largest tier at the large tier's iterations (1 GN x
+    24 CG), which optimize applies there: (cfg, cg_iters)."""
+    from scaloam_tpu_torch import config
+
+    n, nl = PGO_TIERS[-1]
+    base = config.PGOConfig()
+    cfg = dataclasses.replace(base, max_keyframes=n, max_loops=nl, loop_variance=1e-3,
+                              cauchy_k=100.0,
+                              gn_iterations=min(base.gn_iterations, base.gn_iterations_large))
+    return cfg, min(64, cfg.cg_iters_large)
+
+
+def _one_sequence(torch, dev, cfg, xyz, mask):
+    """One sequence through multiseq's stage wiring, frame by frame:
+    mapped poses [frames, 7] (quaternion, translation)."""
+    from scaloam_tpu_torch.models import mapping, odometry
+    from scaloam_tpu_torch.ops import features
+    from scaloam_tpu_torch.types import LidarScan
+
+    o, m = odometry.init_state(cfg, dev), mapping.init_state(cfg, dev)
+    out = []
+    for f in range(xyz.shape[0]):
+        feats = features.extract_features(LidarScan(xyz[f], mask[f]), cfg)
+        o, o_out = odometry.odometry_step(o, feats, cfg)
+        m, m_out = mapping.mapping_step(m, o_out.world, feats.less_sharp, feats.less_flat, cfg)
+        out.append(torch.cat([m_out.pose.quat, m_out.pose.trans]))
+    return torch.stack(out)
+
+
+def _sharded_calls(torch, mesh, inp):
+    """The three sharded functions over the kf axis of `mesh`, each on this
+    rank's shard of the inputs: (results, ms a call)."""
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.parallel import gridmap as pgrid, mesh as mesh_mod, pgo
+    from scaloam_tpu_torch.parallel import sc_retrieval
+
+    desc, keys, count, query = inp["sc"]
+    sc_cfg = config.mulran_os1_64().scancontext
+    d_local, k_local = mesh_mod.shard_rows(mesh, desc), mesh_mod.shard_rows(mesh, keys)
+    sc = lambda: sc_retrieval.detect_loop_sharded(mesh, query, d_local, k_local, count, sc_cfg)
+    res = {"sc": torch.stack([x.to(torch.float64) for x in sc()])}
+    ms = {"sc": cuda_ms(torch, sc, 10, warmup=1)}
+    knn_args = _knn_args(config.kitti_hdl64())
+    for name in ("corner", "surf"):
+        grid, q, qm = inp[name]
+        slab = pgrid.shard_grid(mesh, grid)
+        knn = lambda: pgrid.knn_grid_sharded(mesh, slab, q, qm, **knn_args)
+        res[name] = knn()
+        ms[name] = cuda_ms(torch, knn, 5, warmup=1)
+    pgo_cfg, cg_iters = _pgo_cfg()
+    graph = inp["pgo"]
+    opt = lambda: pgo.optimize_sharded(graph, pgo_cfg, mesh, cg_iters=cg_iters)
+    g = opt()
+    res["pgo"] = torch.cat([g.poses.quat, g.poses.trans], dim=-1)
+    ms["pgo"] = cuda_ms(torch, opt, 2, warmup=1)
+    return res, ms
+
+
+def _check_sharded(label, torch, got, want) -> dict:
+    """Sharded against single-device: the retrieval's index and yaw equal
+    and its distance within 1e-6; the k-NN distances equal and the
+    neighbours equal within reach; the optimised translations within
+    F_PGO_TOL_M. Returns the largest differences."""
+    diff = {"sc_dist": float((got["sc"][2] - want["sc"][2]).abs())}
+    if not (torch.equal(got["sc"][:2], want["sc"][:2]) and diff["sc_dist"] <= 1e-6
+            and int(want["sc"][0]) == F_SC_QUERY):
+        raise AssertionError(f"{label} retrieval {got['sc'].tolist()} vs {want['sc'].tolist()}")
+    for name in ("corner", "surf"):
+        (d, nn), (wd, wnn) = got[name], want[name]
+        near = wd < 1.0
+        if not (torch.equal(d, wd) and torch.equal(nn[near], wnn[near])):
+            raise AssertionError(f"{label} {name} k-NN differs at "
+                                 f"{int((d != wd).sum())} distances")
+        diff[f"{name}_within_reach"] = int(near.sum())
+    diff["pgo_m"] = float((got["pgo"][:, 4:] - want["pgo"][:, 4:]).abs().max())
+    if not diff["pgo_m"] <= F_PGO_TOL_M:
+        raise AssertionError(f"{label} optimize_sharded vs optimize: {diff['pgo_m']:.2e} m")
+    return diff
+
+
+def _f2_rank(device, world, rank, store, inputs_path, out_path):
+    """(f2): one rank of a world on the one card, gloo with CUDA tensors:
+    the sharded functions over its kf axis, then the multi-sequence front
+    end over its sequence axis (and, in the 2-D world, the dry run at full
+    width); writes its results to out_path."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+    from scaloam_tpu_torch.parallel import distributed, dryrun, mesh as mesh_mod, multiseq
+
+    distributed.initialize(f"file://{store}", world, rank, backend="gloo",
+                           timeout=F_RANK_TIMEOUT_S)
+    inp = torch.load(inputs_path, map_location=dev, weights_only=False)  # this script's file
+    mesh = (mesh_mod.make_mesh(world, dev.type) if world < 4
+            else mesh_mod.make_mesh2d(2, world // 2, dev.type))
+    out, ms = _sharded_calls(torch, mesh, inp)
+    out.update(ms=ms, layout={a: mesh_mod.axis_size(mesh, a) for a in mesh.mesh_dim_names})
+
+    cfg = config.kitti_hdl64()
+    xyz, mask = inp["seq_xyz"], inp["seq_mask"]  # [n_seq, frames, P, 3] / [n_seq, frames, P]
+    o_states, m_states = multiseq.shard_states(multiseq.init_states(xyz.shape[0], cfg, dev), mesh)
+    counters = (selection.select_features, gn_odometry.associate_and_solve,
+                gn_odometry.gn_solve_prepared)
+    for c in counters:
+        c.launches = 0
+    mapped = []
+    t0 = time.perf_counter()
+    for f in range(xyz.shape[1]):
+        o_states, m_states, _, m_pose = multiseq.frame_batch(
+            o_states, m_states, xyz[:, f], mask[:, f], cfg, mesh=mesh)
+        p = multiseq.gather_poses(m_pose, mesh)
+        mapped.append(torch.cat([p.quat, p.trans], dim=-1))
+    torch.cuda.synchronize()
+    out.update(launches=[c.launches for c in counters], local_sequences=len(o_states),
+               multiseq_s=time.perf_counter() - t0, mapped=torch.stack(mapped, dim=1))
+    if world >= 4:
+        res = dryrun.dryrun(dev, cfg=cfg)
+        out["dryrun"] = {"layout": res["layout"], "mapped": res["mapped"].trans}
+    torch.save(out, out_path)
+
+
+def multidevice_phase(torch, dev, root, sys_stats, scans):
+    """(f1), then (f2)'s start: a world of one over NCCL in this process,
+    each sharded function against its single-device version on the card;
+    (f2)'s inputs written and its ranks started. Returns (single-device
+    results, (f1)'s stats, a function that waits for (f2)'s ranks)."""
+    import shutil
+
+    import torch.distributed as tdist
+
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.models import posegraph as pg
+    from scaloam_tpu_torch.ops import gridmap
+    from scaloam_tpu_torch.ops import scancontext as sc_ops
+    from scaloam_tpu_torch.parallel import distributed, pgo
+    from scaloam_tpu_torch.types import LidarScan, Pose
+
+    work = os.path.join(root, "build", "smoke_multidevice")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    distributed.initialize(f"file://{work}/f1_store", 1, 0, timeout=120)  # NCCL on a card
+    mesh = distributed.global_mesh(dev.type)
+    log(f"(f1) world of 1: backend {tdist.get_backend()}, mesh {mesh.mesh_dim_names} "
+        f"{tuple(mesh.mesh.shape)}, initialised in {time.perf_counter() - t0:.1f} s")
+
+    cfg = config.kitti_hdl64()
+    pgo_cfg, cg_iters = _pgo_cfg()
+    _, oq, ot, loops = circle_chain(pgo_cfg.max_keyframes, pgo_cfg.max_loops,
+                                    seed=pgo_cfg.max_keyframes)
+    graph = build_graph(torch, pg, Pose, pgo_cfg, oq, ot, loops, dev)
+    inp = {"sc": _sc_case(torch, dev), **_grid_queries(torch, sys_stats["system"]),
+           "pgo": graph}
+    single, ms = {}, {}
+    desc, keys, count, query = inp["sc"]
+    sc_cfg = config.mulran_os1_64().scancontext
+    sc1 = lambda: sc_ops.detect_loop(query, sc_ops.ring_key(query), desc, keys, count, sc_cfg)
+    single["sc"] = torch.stack([x.to(torch.float64) for x in sc1()])
+    ms["sc"] = cuda_ms(torch, sc1, 10, warmup=1)
+    for name in ("corner", "surf"):
+        grid, q, qm = inp[name]
+        knn1 = lambda: gridmap.knn_grid(grid, q, qm, **_knn_args(cfg))
+        single[name] = knn1()
+        ms[name] = cuda_ms(torch, knn1, 5, warmup=1)
+    opt1 = lambda: pg.optimize(graph, pgo_cfg, cg_iters=cg_iters)  # chain-CG at this tier
+    g = opt1()
+    single["pgo"] = torch.cat([g.poses.quat, g.poses.trans], dim=-1)
+    ms["pgo"] = cuda_ms(torch, opt1, 2, warmup=1)
+
+    sizes = []
+    orig = tdist.all_reduce
+
+    def counted(t, *a, **k):
+        sizes.append(t.numel() * t.element_size())
+        return orig(t, *a, **k)
+
+    tdist.all_reduce = counted
+    try:
+        pgo.optimize_sharded(graph, pgo_cfg, mesh, cg_iters=cg_iters)
+    finally:
+        tdist.all_reduce = orig
+    got, ms_sharded = _sharded_calls(torch, mesh, inp)
+    diff = _check_sharded("(f1) world of 1", torch, got, single)
+    tdist.destroy_process_group()
+    stats = {"single_ms": ms, "sharded_ms": ms_sharded, "max_diff": diff,
+             "pgo_all_reduces": len(sizes), "pgo_all_reduce_bytes": int(sum(sizes)),
+             "sc_single": single["sc"].tolist()}
+    log(f"(f1) ms a call, single-device / sharded: " + ", ".join(
+        f"{k} {ms[k]:.3f} / {ms_sharded[k]:.3f}" for k in ms) + f"; differences {diff}")
+    log(f"(f1) one optimize_sharded ({pgo_cfg.max_keyframes} nodes, {pgo_cfg.max_loops} loops, "
+        f"{pgo_cfg.gn_iterations} GN x {cg_iters} CG): {len(sizes)} all_reduces, "
+        f"{sum(sizes)} bytes")
+
+    # (f2)'s inputs, and the one-sequence-at-a-time run it is held against
+    seqs = [[LidarScan.from_numpy(scans[s0 + f], cfg.sensor.max_points, dev)
+             for f in range(F_SEQ_FRAMES)] for s0 in F_SEQ_STARTS]
+    seq_xyz = torch.stack([torch.stack([sc.xyz for sc in seq]) for seq in seqs])
+    seq_mask = torch.stack([torch.stack([sc.mask for sc in seq]) for seq in seqs])
+    single["mapped"] = torch.stack([_one_sequence(torch, dev, cfg, seq_xyz[i], seq_mask[i])
+                                    for i in range(len(seqs))])
+    inputs_path = os.path.join(work, "f2_inputs.pt")
+    torch.save({k: inp[k] for k in ("sc", "corner", "surf", "pgo")}
+               | {"seq_xyz": seq_xyz, "seq_mask": seq_mask}, inputs_path)
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for world in F_WORLDS:
+        for rank in range(world):
+            p = ctx.Process(target=_f2_rank, daemon=True, args=(
+                str(dev), world, rank, os.path.join(work, f"f2_store_{world}"), inputs_path,
+                os.path.join(work, f"f2_out_{world}_{rank}.pt")))
+            p.start()
+            procs.append((world, rank, p))
+    t_start = time.perf_counter()
+
+    def wait_f2():
+        try:
+            for _, _, p in procs:
+                p.join(max(0.1, t_start + F_RANK_TIMEOUT_S - time.perf_counter()))
+        finally:
+            for _, _, p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        bad = [(w, r, p.exitcode) for w, r, p in procs if p.exitcode != 0]
+        if bad:
+            raise AssertionError(f"(f2) ranks failed or timed out (world, rank, exit code): {bad}")
+        outs = {(w, r): torch.load(os.path.join(work, f"f2_out_{w}_{r}.pt"), map_location=dev)
+                for w, r, _ in procs}
+        return outs, time.perf_counter() - t_start
+
+    return single, stats, wait_f2
+
+
+def check_f2(torch, single, outs) -> dict:
+    """(f2)'s results against the single-device ones; per-rank stats."""
+    from scaloam_tpu_torch import config
+
+    outer = config.kitti_hdl64().mapping.outer_iterations
+    rows = {}
+    for (world, rank), out in sorted(outs.items()):
+        label = f"(f2) world {world} rank {rank}"
+        diff = _check_sharded(label, torch, out, single)
+        seq_m = float((out["mapped"][..., 4:] - single["mapped"][..., 4:]).abs().max())
+        n = out["local_sequences"]
+        want = [F_SEQ_FRAMES * n, (F_SEQ_FRAMES - 1) * n, outer * F_SEQ_FRAMES * n]
+        if not (seq_m <= F_SEQ_TOL_M and torch.isfinite(out["mapped"]).all()):
+            raise AssertionError(f"{label}: multiseq mapped poses {seq_m:.2e} m from the "
+                                 f"one-sequence run")
+        if out["launches"] != want:
+            raise AssertionError(f"{label}: launches K1/K2 A/K2 B {out['launches']}, want {want}")
+        if world >= 4 and not (out["dryrun"]["layout"] == {"seq": 2, "kf": world // 2}
+                               and torch.isfinite(out["dryrun"]["mapped"]).all()):
+            raise AssertionError(f"{label}: dry run {out['dryrun']}")
+        rows[f"{world}/{rank}"] = {"layout": out["layout"], "launches": out["launches"],
+                                   "local_sequences": out["local_sequences"],
+                                   "multiseq_s": out["multiseq_s"], "sharded_ms": out["ms"],
+                                   "multiseq_max_m": seq_m, **diff}
+    return rows
+
+
+def backend_device_phase(torch, dev, root, cfg, scans, first, counters):
+    """(f3): SlamSystem with a backend device over (b)'s first frames, held
+    against (b); then run.main with --backend-device 0 (sync and
+    --async-pipeline) and an index past the cards. Returns the stats."""
+    import shutil
+
+    from scaloam_tpu_torch import run
+    from scaloam_tpu_torch.models.pipeline import SlamSystem
+
+    bdev = "cuda:1" if torch.cuda.device_count() > 1 else str(dev)
+    log(f"(f3) front end {dev}, backend device {bdev} ({torch.cuda.device_count()} CUDA devices)")
+    s = SlamSystem(cfg, device=dev, backend_device=bdev)
+    for counter in counters:
+        counter.launches = 0
+    mapped, kf = [], []
+    for i, pts in enumerate(scans[:F_BACKEND_FRAMES]):
+        r = s.process_scan(pts, time=0.1 * i)
+        mapped.append(torch.cat([r.mapped_pose.quat, r.mapped_pose.trans]))
+        kf.append(r.is_keyframe)
+    launches = [c.launches for c in counters]
+    mapped = torch.stack(mapped).cpu().numpy()
+    opt = s.optimized_poses()
+    stats = {"backend_device": bdev, "graph_device": str(s.graph.poses.quat.device),
+             "keyframes": len(s.keyframes), "loops": s.loops_found, "launches": launches,
+             "mapped_max_m": float(np.abs(mapped[:, 4:] - first["mapped"][:, 4:]).max()),
+             "optimized_max_m": (float(np.abs(opt - first["optimized"]).max())
+                                 if opt.shape == first["optimized"].shape else None)}
+    want = [F_BACKEND_FRAMES, F_BACKEND_FRAMES - 1, cfg.mapping.outer_iterations * F_BACKEND_FRAMES]
+    if not (kf == first["keyframe"] and s.loops_found == first["loops"]
+            and stats["mapped_max_m"] <= F_SAME_TOL_M and stats["optimized_max_m"] is not None
+            and stats["optimized_max_m"] <= F_SAME_TOL_M and launches == want
+            and stats["graph_device"] == str(torch.device(bdev))):
+        raise AssertionError(f"(f3) backend device against (b): {stats}, launches want {want}")
+    base = ["--synthetic", "16", "--keyframe-gap", "1.0", "--synthetic-radius", "25",
+            "--backend-device", "0"]
+    stats["cli"] = []
+    for extra in ([], ["--async-pipeline"]):
+        out = os.path.join(root, "build", "smoke_backend")
+        shutil.rmtree(out, ignore_errors=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run.main(base + extra + ["--out", out])
+        res = json.loads(buf.getvalue().strip().splitlines()[-1]) if rc == 0 else None
+        if not (rc == 0 and res["keyframes"] >= 3 and "ate_rmse_optimized" in res):
+            raise AssertionError(f"run.main --backend-device 0 {extra}: exit {rc}, {res}")
+        stats["cli"].append(res)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = run.main(["--synthetic", "2", "--backend-device", "99"])
+    if rc != 2 or "out of range" not in err.getvalue():
+        raise AssertionError(f"run.main --backend-device 99: exit {rc}, {err.getvalue()!r}")
+    return stats
 
 
 def main() -> int:
@@ -991,6 +1395,29 @@ def _main(torch, drive, skewed) -> int:
     dk = deskew_phase(torch, dev, sk_scans, sk_gt, counters)
     log(f"(e) de-skew: {json.dumps(dk)} (launches K1, K2 A, K2 B)")
     log(f"phase wall: (e) de-skew {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (f) the multi-device layer: (f1) a world of one over NCCL here,
+    # (f2) ranks on the one card over gloo, run beside (f3) the backend device
+    t_phase = time.perf_counter()
+    dev0 = torch.device("cuda", 0)
+    single, f1, wait_f2 = multidevice_phase(torch, dev0, os.getcwd(), sys_stats, scans)
+    log(f"(f1) {json.dumps(f1)}")
+    log(f"phase wall: (f1) and (f2)'s start {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    try:
+        f3 = backend_device_phase(torch, dev0, os.getcwd(), sys_cfg, scans,
+                                  sys_stats["first_frames"], counters)
+    finally:
+        outs, f2_wall = wait_f2()
+    log(f"(f3) {json.dumps(f3)}")
+    log(f"(f3) launches K1 / K2 A / K2 B {f3['launches']}")
+    log(f"phase wall: (f3) backend device {time.perf_counter() - t_phase:.1f} s "
+        f"(beside (f2))")
+    for key, row in check_f2(torch, single, outs).items():
+        log(f"(f2) world/rank {key}: {json.dumps(row)}")
+        log(f"(f2) world/rank {key}: launches K1 / K2 A / K2 B {row['launches']} for "
+            f"{row['local_sequences']} sequence(s) of {F_SEQ_FRAMES} frames")
+    log(f"phase wall: (f2) ranks {f2_wall:.1f} s from their start")
     log(f"script wall: {time.perf_counter() - t_script:.1f} s")
 
     gn_src = "scaloam_tpu_torch/csrc/gn_odometry.cu"

@@ -8,7 +8,14 @@ named, and raises without a GPU and without a device. The device is read
 back where the reference reads it: the gate flag once a frame, the
 ScanContext detect triple once a keyframe, and on a loop candidate the
 pose tables, the keyframe clouds of the submap (each materialised once)
-and the one ICP result. The multi-device `backend_device` is not ported.
+and the one ICP result.
+
+`backend_device` puts the backend on a second device: the pose graph, the
+ScanContext database and the stored keyframe clouds live there, and loop
+detection, ICP verification and the optimise run there, so they take no
+time of the front end's device. Only each keyframe's cloud and pose cross
+at the stage boundary (the reference's TCPROS hop between its odometry
+and pose-graph nodes).
 """
 
 from __future__ import annotations
@@ -111,9 +118,11 @@ class Keyframe:
         self._dev = dev
         self._host = self._ready = None
         if dev is not None and dev[0].is_cuda:
+            # The copies run on the current stream of the clouds' device,
+            # which need not be the current device.
             self._host = tuple(a.to("cpu", non_blocking=True) for a in dev)
             self._ready = torch.cuda.Event()
-            self._ready.record()
+            self._ready.record(torch.cuda.current_stream(dev[0].device))
 
     def _materialize(self):
         if self._host is not None:
@@ -165,16 +174,19 @@ def _padded(a: np.ndarray, cap: int, device):
 
 class SlamSystem:
     """Host orchestrator over the port's device stages. Runs on `cuda`
-    unless another device is named; raises without a GPU and a device."""
+    unless another device is named; raises without a GPU and a device.
+    The backend runs on `backend_device` (default: the same device)."""
 
-    def __init__(self, cfg: SlamConfig, device=None):
+    def __init__(self, cfg: SlamConfig, device=None, backend_device=None):
         self.cfg = cfg
         self.device = _device.resolve(device)
         dev = self.device
+        self.backend_device = dev if backend_device is None else torch.device(backend_device)
+        bdev = self.backend_device
         self.o_state = odometry_mod.init_state(cfg, dev)
         self.m_state = mapping_mod.init_state(cfg, dev)
-        self.graph = pg.init_graph(cfg.pgo, dev)
-        self.sc = scm.SCManager(cfg.scancontext, dev)
+        self.graph = pg.init_graph(cfg.pgo, bdev)
+        self.sc = scm.SCManager(cfg.scancontext, bdev)
         self.keyframes: List[Keyframe] = []
         self.kf_times: List[float] = []
         self.frame_idx = 0
@@ -265,6 +277,15 @@ class SlamSystem:
                                time: float) -> None:
         """Append an already prepared keyframe cloud: the stored keyframe,
         its ScanContext descriptor and its graph node."""
+        # The stage boundary: with a backend device the cloud and the pose
+        # cross here (asynchronously between cards; a copy into host memory
+        # completes first), and all backend state and solves stay there.
+        if self.backend_device != self.device:
+            nb = self.backend_device.type == "cuda"
+            kf_xyz, kf_mask, kf_ext, q, t = (
+                a.to(self.backend_device, non_blocking=nb)
+                for a in (kf_xyz, kf_mask, kf_ext, mapped_pose.quat, mapped_pose.trans))
+            mapped_pose = Pose(q, t)
         self.keyframes.append(Keyframe(time=time, frame=self.frame_idx,
                                        dev=(kf_xyz, kf_mask, kf_ext)))
         self.kf_times.append(time)
@@ -302,7 +323,7 @@ class SlamSystem:
         graph-estimated relative pose and by the ScanContext yaw. Returns the
         loop measurement X_curr^-1 X_loop, or None if rejected."""
         lcfg = self.cfg.loop
-        dev = self.device
+        dev = self.backend_device
         poses_q, poses_t = self.fetch_pose_tables() if poses is None else poses
         n_kf = len(self.keyframes)
         T_all = _pose_matrices(poses_q[:n_kf], poses_t[:n_kf])
@@ -440,20 +461,22 @@ class SlamSystem:
         self.flush_artifacts()
 
     @classmethod
-    def resume(cls, directory: str, cfg: SlamConfig, device=None) -> "SlamSystem":
+    def resume(cls, directory: str, cfg: SlamConfig, device=None,
+               backend_device=None) -> "SlamSystem":
         """Reload keyframe clouds, poses, the ScanContext database and the
-        accepted loop factors; odometry and mapping restart fresh."""
+        accepted loop factors (on the backend device); odometry and mapping
+        restart fresh."""
         from scaloam_tpu_torch.io import artifacts, pcd as pcd_io
 
-        sys_ = cls(cfg, device=device)
-        dev = sys_.device
+        sys_ = cls(cfg, device=device, backend_device=backend_device)
+        dev, bdev = sys_.device, sys_.backend_device
         sys_._resume_dir = os.path.abspath(directory)
         poses, times, scan_paths, scd_paths = artifacts.load_session(directory)
         n = min(len(times), len(scan_paths))
 
         def pose_of(T):
-            return Pose(se3.mat_to_quat(torch.tensor(T[:3, :3], dtype=torch.float32, device=dev)),
-                        torch.tensor(T[:3, 3], dtype=torch.float32, device=dev))
+            return Pose(se3.mat_to_quat(torch.tensor(T[:3, :3], dtype=torch.float32, device=bdev)),
+                        torch.tensor(T[:3, 3], dtype=torch.float32, device=bdev))
 
         for k in range(n):
             raw = pcd_io.read_pcd(scan_paths[k])
@@ -465,13 +488,13 @@ class SlamSystem:
             sys_.graph = pg.add_keyframe(sys_.graph, pose, 0.0, False, n_nodes=k)
             if k < len(scd_paths):
                 sc = np.loadtxt(scd_paths[k]).astype(np.float32)
-                sys_.sc.save_descriptor(torch.from_numpy(sc).to(dev))
+                sys_.sc.save_descriptor(torch.from_numpy(sc).to(bdev))
             else:
                 cap = cfg.scancontext.max_input_points
-                sys_.sc.make_and_save(*_padded(cloud[:cap], cap, dev))
+                sys_.sc.make_and_save(*_padded(cloud[:cap], cap, bdev))
             # The gate continues from the last restored pose.
             zero = torch.zeros((), dtype=torch.float32, device=dev)
-            sys_.gate_state = GateState(pose.quat, pose.trans, zero, zero.clone(),
+            sys_.gate_state = GateState(pose.quat.to(dev), pose.trans.to(dev), zero, zero.clone(),
                                         torch.ones((), dtype=torch.bool, device=dev))
         g2o_path = os.path.join(directory, "singlesession_posegraph.g2o")
         if os.path.exists(g2o_path):

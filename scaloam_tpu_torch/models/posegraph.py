@@ -246,41 +246,50 @@ def _take(p: Pose, idx) -> Pose:
     return Pose(p.quat[idx], p.trans[idx])
 
 
-def _linearize(graph: PoseGraph, cfg: PGOConfig):
+def _linearize(graph: PoseGraph, cfg: PGOConfig, k=None, slots=None):
+    """Factor data at the current estimates: the odometry and GPS factors
+    of nodes k (default all N) and the loop `slots` (default all L). A slot
+    past the capacity (a sharded solve's padding) fails the node or loop
+    count test, so it carries no factor."""
     N = graph.gps_z.shape[0]
+    L = graph.loop_i.shape[0]
     dev = graph.gps_z.device
     n = graph.n_nodes
     nodes = graph.poses
+    k = torch.arange(N, device=dev) if k is None else k
+    slots = torch.arange(L, device=dev) if slots is None else slots
+    F = k.shape[0]
 
-    ks = torch.arange(N, device=dev)
-    kn = torch.clamp(ks + 1, max=N - 1)
-    odom_valid = (ks < n - 1) & ~graph.chain_break[kn]
-    r_o, Ji_o, Jj_o = _between_batch(nodes, _take(nodes, kn), graph.odom_rel)
+    ki = torch.clamp(k, max=N - 1)
+    kn = torch.clamp(k + 1, max=N - 1)
+    odom_valid = (k < n - 1) & ~graph.chain_break[kn]
+    r_o, Ji_o, Jj_o = _between_batch(_take(nodes, ki), _take(nodes, kn), _take(graph.odom_rel, ki))
     w_odom = torch.cat([torch.full((3,), 1.0 / cfg.odom_rot_variance, device=dev),
                         torch.full((3,), 1.0 / cfg.odom_trans_variance, device=dev)])
-    odom = _FactorData(i=ks, j=kn, r=r_o, Ji=Ji_o, Jj=Jj_o,
-                       W=w_odom.expand(N, 6), valid=odom_valid)
+    odom = _FactorData(i=ki, j=kn, r=r_o, Ji=Ji_o, Jj=Jj_o,
+                       W=w_odom.expand(F, 6), valid=odom_valid)
 
-    L = graph.loop_i.shape[0]
-    loop_valid = torch.arange(L, device=dev) < graph.n_loops
-    r_l, Ji_l, Jj_l = _between_batch(_take(nodes, graph.loop_i),
-                                     _take(nodes, graph.loop_j), graph.loop_rel)
+    ls = torch.clamp(slots, max=L - 1)
+    loop_i, loop_j = graph.loop_i[ls], graph.loop_j[ls]
+    loop_valid = slots < graph.n_loops
+    r_l, Ji_l, Jj_l = _between_batch(_take(nodes, loop_i), _take(nodes, loop_j),
+                                     _take(graph.loop_rel, ls))
     w_loop_base = 1.0 / cfg.loop_variance
     sq_white = torch.sum(r_l * r_l, dim=-1) * w_loop_base
     w_rob = cauchy_weight(sq_white, cfg.cauchy_k)
-    loops = _FactorData(i=graph.loop_i, j=graph.loop_j, r=r_l, Ji=Ji_l, Jj=Jj_l,
-                        W=w_loop_base * w_rob[:, None] * torch.ones((L, 6), device=dev),
+    loops = _FactorData(i=loop_i, j=loop_j, r=r_l, Ji=Ji_l, Jj=Jj_l,
+                        W=w_loop_base * w_rob[:, None] * torch.ones((slots.shape[0], 6), device=dev),
                         valid=loop_valid)
 
-    r_g, J_g = _gps_batch(nodes, graph.gps_z)
+    r_g, J_g = _gps_batch(_take(nodes, ki), graph.gps_z[ki])
     w_g_base = 1.0 / cfg.gps_z_variance
     w_g = w_g_base * cauchy_weight((r_g[:, 0] ** 2) * w_g_base, cfg.cauchy_k)
-    J_g6 = torch.cat([J_g, J_g.new_zeros((N, 5, 6))], dim=-2)
+    J_g6 = torch.cat([J_g, J_g.new_zeros((F, 5, 6))], dim=-2)
     gps = _FactorData(
-        i=ks, j=ks, r=torch.cat([r_g, r_g.new_zeros((N, 5))], dim=-1),
+        i=ki, j=ki, r=torch.cat([r_g, r_g.new_zeros((F, 5))], dim=-1),
         Ji=J_g6, Jj=torch.zeros_like(J_g6),
-        W=torch.cat([w_g[:, None], w_g.new_zeros((N, 5))], dim=-1),
-        valid=graph.gps_valid & (ks < n),
+        W=torch.cat([w_g[:, None], w_g.new_zeros((F, 5))], dim=-1),
+        valid=graph.gps_valid[ki] & (k < n),
     )
     return [odom, loops, gps]
 
@@ -348,24 +357,29 @@ def _hess_matvec(factors, v: torch.Tensor, damping_diag: torch.Tensor) -> torch.
 
 def _chain_factor(odom, D_blocks, damp, free_mask):
     """Cyclic-reduction factor of the chain operator: the given diagonal
-    blocks + damping, the odometry couplings off the diagonal; frozen and
-    padding nodes decouple to identity."""
+    blocks + damping, the odometry couplings off the diagonal."""
+    return _chain_factor_blocks(_JtWJ(odom.Ji, odom.W, odom.Jj), D_blocks, damp, free_mask)
+
+
+def _chain_factor_blocks(B_chain, D_blocks, damp, free_mask):
+    """The chain factor from the coupling blocks B_chain [N, 6, 6] (B[k]
+    couples nodes k and k+1); frozen and padding nodes decouple to
+    identity."""
     eye6 = torch.eye(6, dtype=D_blocks.dtype, device=D_blocks.device)
     D_chain = D_blocks + damp[:, :, None] * eye6 + 1e-6 * eye6
     D_chain = torch.where(free_mask[:, None, None], D_chain, eye6)
-    B_chain = _JtWJ(odom.Ji, odom.W, odom.Jj)  # coupling (k, k+1)
     pair_free = free_mask & torch.roll(free_mask, -1)
     pair_free[-1] = False
     B_chain = torch.where(pair_free[:, None, None], B_chain, 0.0)
     return blocktri.factor(D_chain, B_chain)
 
 
-def _run_pcg(factors, g, damp, free_mask, precond, iters: int):
-    """Preconditioned CG for H d = -g on the free nodes."""
+def _run_pcg(hess_mv, g, free_mask, precond, iters: int):
+    """Preconditioned CG for H d = -g on the free nodes; hess_mv(v) = H v."""
     fm = free_mask[:, None]
 
     def mv(v):
-        return torch.where(fm, _hess_matvec(factors, torch.where(fm, v, 0.0), damp), 0.0)
+        return torch.where(fm, hess_mv(torch.where(fm, v, 0.0)), 0.0)
 
     b = torch.where(fm, -g, 0.0)
     x = torch.zeros_like(b)
@@ -399,7 +413,7 @@ def _solve_cg(factors, g, D, D_loop, free_mask, damping: float, iters: int):
     def precond(v):
         return torch.where(fm, blocktri.solve(chain, torch.where(fm, v, 0.0)), 0.0)
 
-    return _run_pcg(factors, g, damp, free_mask, precond, iters)
+    return _run_pcg(lambda v: _hess_matvec(factors, v, damp), g, free_mask, precond, iters)
 
 
 def _woodbury_setup(factors, D, D_loop, free_mask, damping: float):
@@ -465,7 +479,8 @@ def _solve_woodbury(factors, g, D, D_loop, free_mask, damping: float, iters: int
     damp = _damping(D, D_loop, damping)
     if wb is None:
         wb = _woodbury_setup(factors, D, D_loop, free_mask, damping)
-    return _run_pcg(factors, g, damp, free_mask, _wb_precond(wb, factors[1], free_mask), iters)
+    return _run_pcg(lambda v: _hess_matvec(factors, v, damp), g, free_mask,
+                   _wb_precond(wb, factors[1], free_mask), iters)
 
 
 def uses_woodbury(N: int, L: int, cfg: PGOConfig) -> bool:

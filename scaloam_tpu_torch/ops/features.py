@@ -8,7 +8,8 @@ ops/kernels/selection.py) and the five output clouds.
 The port follows the Pallas selection semantics: subregions pick in order
 within a round, and a pick's band removes points from the later
 subregions' pools at once. The reference's XLA branch (all subregions in
-parallel) is not ported.
+parallel), which differs at subregion boundaries by design, has no
+counterpart here.
 """
 
 from __future__ import annotations

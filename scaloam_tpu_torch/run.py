@@ -13,8 +13,9 @@ It runs on `cuda` unless --device names another device (`--device cpu`
 runs the plain PyTorch versions); without a GPU and without --device it
 exits with code 2. --async-pipeline runs the threaded real-time runtime
 (runtime/pipeline.py) instead of the sync driver, and its result line adds
-`dropped_frames`. The second backend device (--backend-device) is not
-ported yet and exits with code 2.
+`dropped_frames`. --backend-device N runs the backend (pose graph,
+ScanContext, loop verification) on the card cuda:N; an index past the
+cards present exits with code 2.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--async-pipeline", action="store_true",
                    help="threaded real-time pipeline instead of the sync driver")
     p.add_argument("--backend-device", type=int, default=None,
-                   help="device index for the backend stage (not ported yet)")
+                   help="CUDA device index for the backend stage")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda; 'cpu' runs the "
                         "plain PyTorch versions)")
@@ -61,9 +62,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.backend_device is not None:
-        print("--backend-device is not ported yet", file=sys.stderr)
-        return 2
 
     from scaloam_tpu_torch import config, device as device_mod
     from scaloam_tpu_torch.models.pipeline import SlamSystem
@@ -115,11 +113,22 @@ def main(argv=None) -> int:
         return 2
 
     # -- run -----------------------------------------------------------------
+    backend_dev = None
+    if args.backend_device is not None:
+        import torch
+
+        n_cards = torch.cuda.device_count()
+        if not 0 <= args.backend_device < n_cards:
+            print(f"--backend-device {args.backend_device} out of range "
+                  f"({n_cards} CUDA devices)", file=sys.stderr)
+            return 2
+        backend_dev = torch.device("cuda", args.backend_device)
+
     if args.resume:
-        sys_ = SlamSystem.resume(args.resume, cfg, device=dev)
+        sys_ = SlamSystem.resume(args.resume, cfg, device=dev, backend_device=backend_dev)
         print(f"resumed {len(sys_.keyframes)} keyframes from {args.resume}", file=sys.stderr)
     else:
-        sys_ = SlamSystem(cfg, device=dev)
+        sys_ = SlamSystem(cfg, device=dev, backend_device=backend_dev)
     if args.use_gps and args.mulran_dir:
         for t, alt in seq.gps_events():
             sys_.add_gps(t, alt)

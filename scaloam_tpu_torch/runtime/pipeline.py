@@ -25,6 +25,17 @@ it touches the frame's tensors, which are also marked as in use there
 early. No worker synchronises the whole device; each read goes through the
 worker's own stream. On the CPU there are no streams or events and the
 same threads run the plain versions.
+
+With a backend device (`backend_device`, a second card) the backend
+stream lives there, and the backend-side threads touch the front end's
+tensors on a third stream, on the front end's card: both wait on each
+frame's event (cudaStreamWaitEvent crosses devices within a process), and
+the keyframe's cloud and pose are handed over by a non_blocking copy that
+SlamSystem issues at its stage boundary after those waits. PyTorch runs a
+copy between cards on the source card's current stream and orders the
+destination's current stream (the backend stream) after it;
+`record_stream` marks the handed-over tensors in use on the stream that
+reads them.
 """
 
 from __future__ import annotations
@@ -57,6 +68,22 @@ def _record_event(device: torch.device):
     ev = torch.cuda.Event()
     ev.record()
     return ev
+
+
+def _card(device: torch.device):
+    """The CUDA device index of `device`, or None off the GPU."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def _unique(*streams) -> list:
+    """The distinct streams among `streams`, in order, None left out."""
+    out = []
+    for s in streams:
+        if s is not None and all(s is not o for o in out):
+            out.append(s)
+    return out
 
 
 def _done(event) -> bool:
@@ -113,9 +140,10 @@ def _materialize_all(results: list) -> list:
 class AsyncSlamPipeline:
     """Threaded wrapper over SlamSystem's stages with real-time semantics.
 
-    `AsyncSlamPipeline(cfg, drop_backlog=None, system=None, device=None)`
-    runs on `cuda` unless `device` names another; a passed `system` (e.g.
-    SlamSystem.resume) fixes the device. `feed` frames, then `finish`
+    `AsyncSlamPipeline(cfg, drop_backlog=None, system=None, device=None,
+    backend_device=None)` runs on `cuda` unless `device` names another,
+    its backend on `backend_device` (default: the same device); a passed
+    `system` (e.g. SlamSystem.resume) fixes both. `feed` frames, then `finish`
     (drains every stage) or `abort` (drops the backlog); both leave
     `odom_results` / `mapped_results` as (time, translation numpy) lists.
     A worker's exception stops the pipeline and is raised by `finish`."""
@@ -128,23 +156,30 @@ class AsyncSlamPipeline:
     _BACKEND_LAG = 6
 
     def __init__(self, cfg: SlamConfig, drop_backlog: Optional[bool] = None,
-                 system: Optional[SlamSystem] = None, device=None):
+                 system: Optional[SlamSystem] = None, device=None, backend_device=None):
         self.cfg = cfg
         self.drop_backlog = cfg.runtime.drop_backlog if drop_backlog is None else drop_backlog
         # The fused step maps every frame, so a skip_frame cadence runs the
         # separate-stage threads.
         self.fused = cfg.runtime.fused_frontend and cfg.odometry.skip_frame == 1
-        if system is not None and device is not None and torch.device(device) != system.device:
-            raise ValueError(f"device {device} differs from the system's {system.device}")
-        self.sys = system if system is not None else SlamSystem(cfg, device=device)
+        if system is not None:
+            for name, want, got in (("device", device, system.device),
+                                    ("backend_device", backend_device, system.backend_device)):
+                if want is not None and torch.device(want) != got:
+                    raise ValueError(f"{name} {want} differs from the system's {got}")
+        self.sys = system if system is not None else SlamSystem(
+            cfg, device=device, backend_device=backend_device)
         self.device = self.sys.device
-        self._cuda_index = None  # the card the workers run on
-        self._fe_stream = self._bk_stream = None
-        if self.device.type == "cuda":
-            idx = self.device.index
-            self._cuda_index = torch.cuda.current_device() if idx is None else idx
-            self._fe_stream = torch.cuda.Stream(self._cuda_index)
-            self._bk_stream = torch.cuda.Stream(self._cuda_index)
+        self.backend_device = self.sys.backend_device
+        fe_card, bk_card = _card(self.device), _card(self.backend_device)
+        self._fe_stream = None if fe_card is None else torch.cuda.Stream(fe_card)
+        self._bk_stream = None if bk_card is None else torch.cuda.Stream(bk_card)
+        # The stream on the front end's card on which the backend-side
+        # threads read the front end's tensors: the backend stream itself
+        # when both stages share a card.
+        self._rd_stream = None
+        if fe_card is not None:
+            self._rd_stream = self._bk_stream if fe_card == bk_card else torch.cuda.Stream(fe_card)
         qd = cfg.runtime.queue_depth
         self.scan_q = BoundedQueue(qd, "scans")
         self.feat_q = BoundedQueue(qd, "features")
@@ -279,14 +314,16 @@ class AsyncSlamPipeline:
             self.stage_frames["frontend"] += 1
 
     def _handoff(self, event, tensors) -> None:
-        """Make a frame's front-end tensors safe to use on the backend
-        stream: order after the producer's event, and keep the caching
-        allocator from reusing their memory before the backend's work."""
-        if self._bk_stream is None:
+        """Make a frame's front-end tensors safe to use on the backend side:
+        order the backend-side streams after the producer's event, and keep
+        the caching allocator from reusing their memory before the stream
+        that reads them is done."""
+        if self._rd_stream is None:
             return
-        self._bk_stream.wait_event(event)
+        for stream in _unique(self._rd_stream, self._bk_stream):
+            stream.wait_event(event)
         for t in tensors:
-            t.record_stream(self._bk_stream)
+            t.record_stream(self._rd_stream)
 
     def _backend_worker(self):
         """Keyframe ingest (the PGO node's process_pg): the gate check and
@@ -418,18 +455,25 @@ class AsyncSlamPipeline:
             o_tmp, o_out = odometry_mod.odometry_step(odometry_mod.init_state(cfg, dev), feats, cfg)
             mapping_mod.mapping_step(mapping_mod.init_state(cfg, dev), o_out.world,
                                      o_tmp.last_corner, o_tmp.last_surf, cfg)
-        g = pg.init_graph(cfg.pgo, dev)
+        bdev = self.backend_device
+        g = pg.init_graph(cfg.pgo, bdev)
         for k in range(2):
-            g = pg.add_keyframe(g, Pose.identity(dev), 0.0, False, n_nodes=k)
+            g = pg.add_keyframe(g, Pose.identity(bdev), 0.0, False, n_nodes=k)
         pg.optimize(g, cfg.pgo)
 
-    def _run(self, fn, stream) -> None:
-        """A worker's body on its stream; an exception stops the pipeline
-        and is kept for finish() to raise."""
+    def _streams(self) -> List:
+        return _unique(self._fe_stream, self._rd_stream, self._bk_stream)
+
+    def _run(self, fn, streams) -> None:
+        """A worker's body with `streams` current on their cards, the last
+        one's card the thread's device; an exception stops the pipeline and
+        is kept for finish() to raise."""
         try:
-            if stream is not None:
-                torch.cuda.set_device(self._cuda_index)
-            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            with contextlib.ExitStack() as ctx:
+                if streams:
+                    torch.cuda.set_device(streams[-1].device)
+                for stream in streams:
+                    ctx.enter_context(torch.cuda.stream(stream))
                 fn()
         except BaseException as e:  # noqa: BLE001 - re-raised by finish()
             self._errors.append(e)
@@ -440,13 +484,11 @@ class AsyncSlamPipeline:
     def start(self, precompile: bool = True) -> None:
         if precompile:
             self._precompile_stages()
-        fe, bk = self._fe_stream, self._bk_stream
-        if fe is not None:
-            # The workers' streams start after the system's set-up and the
-            # throwaway work on the caller's stream.
-            caller = torch.cuda.current_stream(self.device)
-            fe.wait_stream(caller)
-            bk.wait_stream(caller)
+        # The workers' streams start after the system's set-up and the
+        # throwaway work on the caller's streams.
+        for stream in self._streams():
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+        fe, bk = _unique(self._fe_stream), _unique(self._rd_stream, self._bk_stream)
         if self.fused:
             workers = ((self._fused_frontend_worker, fe), (self._backend_worker, bk),
                        (self._loop_worker, bk))
@@ -454,8 +496,8 @@ class AsyncSlamPipeline:
             workers = ((self._registration_worker, fe), (self._odometry_worker, fe),
                        (self._mapping_worker, fe), (self._backend_worker, bk),
                        (self._loop_worker, bk))
-        for fn, stream in workers:
-            th = threading.Thread(target=self._run, args=(fn, stream),
+        for fn, streams in workers:
+            th = threading.Thread(target=self._run, args=(fn, streams),
                                   name=fn.__name__.strip("_"), daemon=True)
             th.start()
             self._threads.append(th)
@@ -468,11 +510,9 @@ class AsyncSlamPipeline:
         deadline = time.time() + timeout
         for th in self._threads:
             th.join(max(0.1, deadline - time.time()))
-        if self._fe_stream is not None:
-            # The caller's stream continues after the workers' last work.
-            caller = torch.cuda.current_stream(self.device)
-            caller.wait_stream(self._fe_stream)
-            caller.wait_stream(self._bk_stream)
+        # The caller's streams continue after the workers' last work.
+        for stream in self._streams():
+            torch.cuda.current_stream(stream.device).wait_stream(stream)
         self.odom_results = _materialize_all(self.odom_results)
         self.mapped_results = _materialize_all(self.mapped_results)
 
