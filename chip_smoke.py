@@ -52,10 +52,26 @@ to 0 just before it and read just after:
 - (f3), beside (f2): SlamSystem with a backend device (cuda:1 where there
   is one, else cuda:0) over (b)'s first 32 frames, held against (b); the
   CLI with --backend-device 0, sync and --async-pipeline, and with an
-  index past the cards (exit code 2).
+  index past the cards (exit code 2);
+- (g1) each other sensor preset at its full width (vlp16 at VLP-16's 1800
+  columns, hdl32 and mulran_os1_64 at 2048): the kernel checks above at
+  the preset's frame shapes, then `FrontEnd(<preset>(), device="cuda")`
+  over 12 frames of the main path's course simulated with the preset's
+  beam ladder, launches K1 12, K2 A 11, K2 B 24;
+- (g2) the README's MulRan usage: `run.main(["--preset", "mulran_os1_64",
+  "--mulran-dir", d, "--use-gps", "--out", o])` over a synthetic OS1-64
+  course written in MulRan's layout under build/smoke_mulran (60 frames
+  lapping an 8 m circle, 4 Hz GPS at an absolute altitude): exit 0, a
+  loop, GPS factors in the graph, the ATE of optimized_poses.txt against
+  global_pose.csv, ms/frame, the optimise's time and tier, launches;
+- (g3) `mapping.map_points` on (b)'s final mapping state against a host
+  flatten of the same grids (same rows, same order), and the generic
+  `voxel.voxel_downsample` on a main-path keyframe cloud, with and without
+  a priority centre, against the same call on the CPU; both timed.
 
 The last three lines of standard output are the kernel table (JSON, with
-the launches of the system drive), the card's name and power limit, and
+the launches of the system drive, and per kernel the (g1) rows and the
+(g2) launches), the card's name and power limit, and
 the device line (JSON). Any mismatch or error raises, so the exit code is
 non-zero. Without a GPU it exits non-zero and prints no result.
 """
@@ -121,6 +137,21 @@ F_BACKEND_FRAMES = 32
 F_PGO_TOL_M = 5e-3  # the sums run in another order (tests/test_parallel.py)
 F_SEQ_TOL_M = 1e-5
 F_SAME_TOL_M = 1e-5  # (f3) against (b): the same kernels on the same card
+# (g) the other sensor presets at full width, each with its sensor's
+# columns a 10 Hz revolution; the README's MulRan usage on an OS1-64 course
+# that laps an 8 m circle at 1.2 m a frame (more than the 1 m keyframe gap,
+# so every frame is a keyframe, and a lap of 42 frames clears ScanContext's
+# 30 excluded recent keyframes) with 4 Hz GPS at an absolute altitude; the
+# generic voxel filter at a 1 m leaf over a keyframe cloud, its capacity
+# half the occupied voxels so that it overflows.
+G_PRESETS = (("vlp16", 1800), ("hdl32", 2048), ("mulran_os1_64", 2048))
+G2_FRAMES = 60
+G2_RADIUS_M = 8.0
+G2_STEP_M = 1.2
+G2_GPS_ALT_M = 42.0
+G2_T0_NS = 1_561_000_000_000_000_000  # a MulRan-era stamp (ns)
+G3_VOXEL_M = 1.0
+G3_TOL_M = 1e-4  # float sums in another order on the card
 
 
 def log(*a):
@@ -200,20 +231,46 @@ def pose_err(torch, label, got, want, counts=None):
     return max(dq, dt)
 
 
-def _scan_job(i):
-    """Frame i of run.py's synthetic drive (simulate_trajectory's circle,
-    radius 22 m, 1 m a frame, 1024 azimuths) and its ground-truth pose."""
+def _circle_frame(i, radius, step, n_scans, n_azimuth, lidar_type):
+    """Frame i of a drive around a circle (simulate_trajectory's course,
+    `step` m a frame) through run.py's synthetic world: (points, pose)."""
     from scaloam_tpu_torch.utils import synthetic
 
     world = synthetic.make_world(seed=0, n_boxes=60, extent=70.0)
-    theta = i / 22.0
-    pos = np.array([22.0 * np.sin(theta), 22.0 * (1 - np.cos(theta)), 1.8])
-    pts = synthetic.simulate_scan(world, pos, theta, n_scans=64, n_azimuth=1024, seed=i,
-                                  lidar_type="HDL64")
+    theta = step * i / radius
+    pos = np.array([radius * np.sin(theta), radius * (1 - np.cos(theta)), 1.8])
+    pts = synthetic.simulate_scan(world, pos, theta, n_scans=n_scans, n_azimuth=n_azimuth,
+                                  seed=i, lidar_type=lidar_type)
     T = np.eye(4)
     T[:3, :3] = [[np.cos(theta), -np.sin(theta), 0], [np.sin(theta), np.cos(theta), 0], [0, 0, 1]]
     T[:3, 3] = pos
     return pts, T
+
+
+def _scan_job(i):
+    """Frame i of run.py's synthetic drive (radius 22 m, 1 m a frame, 1024
+    azimuths, HDL-64) and its ground-truth pose."""
+    return _circle_frame(i, 22.0, 1.0, 64, 1024, "HDL64")
+
+
+def _mulran_scan_job(i):
+    """Frame i of (g2)'s OS1-64 course (G2_RADIUS_M, G2_STEP_M a frame,
+    2048 columns) and its ground-truth pose."""
+    return _circle_frame(i, G2_RADIUS_M, G2_STEP_M, 64, 2048, "OS1-64")
+
+
+def _preset_drive_job(preset):
+    """(g1)'s drive for one (preset, columns): the main path's course and
+    world with the preset's beam ladder. Returns (scans, gt poses)."""
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.utils import synthetic
+
+    name, cols = preset
+    sensor = config.PRESETS[name]().sensor
+    return synthetic.simulate_trajectory(
+        synthetic.make_world(seed=3, n_boxes=60, extent=70.0), n_frames=N_FRAMES, speed=1.2,
+        radius=40.0, n_scans=sensor.n_scans, n_azimuth=cols, seed=7,
+        lidar_type=sensor.lidar_type)
 
 
 def _deskew_scans():
@@ -1060,70 +1117,24 @@ def backend_device_phase(torch, dev, root, cfg, scans, first, counters):
     return stats
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    import scaloam_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-
-    # The system drive's scans are made by worker processes while the
-    # kernels build and the earlier phases run.
-    pool = multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
-    try:
-        drive = pool.map_async(_scan_job, range(SYS_FRAMES))
-        skewed = pool.apply_async(_deskew_scans)
-        return _main(torch, drive, skewed)
-    finally:
-        pool.terminate()
-        pool.join()
-
-
-def _main(torch, drive, skewed) -> int:
-    t_script = time.perf_counter()
-
-    from scaloam_tpu_torch import config
+def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
+    """Each kernel entry against its plain version at the shapes of cfg's
+    frames (dev_scans, on the card), then timed. K1 on frame 1's selection
+    inputs, the same frame as one subregion spanning each row (long lists)
+    and a tie-heavy input: equal. K2 entry A on frame 1's cached
+    candidates, a numpy-made scenario and the scenario with every mask
+    off; entry B on the prepared factors mapping passes in at PREP_FRAME
+    (a dense map) and with every factor off: within the K2 tolerances.
+    Returns {"K1" | "K2 A" | "K2 B": {max_abs_err, ms, eager_ms, plain_ms,
+    bound_ms, bound_by}}."""
     from scaloam_tpu_torch.models import odometry
     from scaloam_tpu_torch.models.frontend import FrontEnd
     from scaloam_tpu_torch.ops import features, se3
-    from scaloam_tpu_torch.ops.kernels import _build, gn_odometry, selection
-    from scaloam_tpu_torch.types import LidarScan, Pose
-    from scaloam_tpu_torch.utils import synthetic
+    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+    from scaloam_tpu_torch.types import Pose
 
-    dev = torch.device("cuda")
-    smi = smi_line()
-    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
-                          text=True, check=True, timeout=60).stdout.strip().splitlines()[-1]
-    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-        f"cuda {torch.version.cuda}  nvcc: {nvcc}")
-    log(f"card: {smi}")
-
-    # ---- build every kernel of the path from csrc/ (parallel nvcc)
-    t0 = t_checks = time.perf_counter()
-    logs = _build.build()
-    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
-
-    cfg = config.kitti_hdl64()
-    cap = cfg.sensor.max_points
     feat = cfg.features
-    t0 = time.perf_counter()
-    world = synthetic.make_world(seed=3, n_boxes=60, extent=70.0)
-    scans, gt = synthetic.simulate_trajectory(
-        world, n_frames=N_FRAMES, speed=1.2, radius=40.0, n_scans=64,
-        n_azimuth=2048, seed=7,
-    )
-    dev_scans = [LidarScan.from_numpy(s, cap, dev) for s in scans]
-    torch.cuda.synchronize()
-    log(f"data: {N_FRAMES} scans of {[len(s) for s in scans[:3]]}... points "
-        f"in {time.perf_counter() - t0:.1f} s")
-
-    # ---- K1: selection on a real full-width frame, the same frame as one
-    # subregion spanning each row (long lists), and a tie-heavy input
+    rows = {}
     si = features.selection_inputs(dev_scans[1], cfg)
     sel_kw = dict(n_sub=feat.n_subregions, n_corner=feat.less_sharp_per_subregion,
                   n_flat=feat.flat_per_subregion, curv_thr=feat.curvature_threshold)
@@ -1153,24 +1164,24 @@ def _main(torch, drive, skewed) -> int:
         torch.cuda.synchronize()
         for n, g, w in zip(names, got, want):
             if not torch.equal(g, w):
-                raise AssertionError(f"K1 {label}: {n} differs from the plain version "
+                raise AssertionError(f"{tag}K1 {label}: {n} differs from the plain version "
                                      f"at {int((g != w).sum())} entries")
             k1_err = max(k1_err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        log(f"K1 {label}: kernel == plain on all {len(names)} outputs "
+        log(f"{tag}K1 {label} ({S} x {W}): kernel == plain on all {len(names)} outputs "
             f"({int(got[1].sum())} corner, {int(got[3].sum())} flat picks)")
     k1_call = lambda: selection.select_features(*frame_args, **sel_kw)
-    k1_ms = graph_ms(torch, k1_call, 100)
-    k1_eager_ms = cuda_ms(torch, k1_call, 200)
-    k1_plain_ms = cuda_ms(torch, lambda: selection.select_features_plain(*frame_args, **sel_kw), 5)
     n_rounds = feat.less_sharp_per_subregion + feat.flat_per_subregion
     k1_bytes = (S * W * (4 + 4 + 4 + 1) + 2 * si.sp.numel() * 4
                 + si.sp.numel() * n_rounds * 5 + S * W)
     scanned = n_rounds * int(torch.clamp(si.ep - si.sp + 1, min=0).sum())
     k1_ops = 3 * scanned  # per scanned point: flag test, threshold, max compare
-    k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
-    log(f"K1 times: kernel {k1_ms:.4f} ms (eager call {k1_eager_ms:.4f} ms), "
-        f"plain {k1_plain_ms:.3f} ms, bound {k1_bound:.6f} ms "
-        f"({k1_bytes} B, {k1_ops} ops)")
+    rows["K1"] = dict(
+        max_abs_err=k1_err, ms=graph_ms(torch, k1_call, 100), eager_ms=cuda_ms(torch, k1_call, 200),
+        plain_ms=cuda_ms(torch, lambda: selection.select_features_plain(*frame_args, **sel_kw), 5))
+    rows["K1"]["bound_ms"], rows["K1"]["bound_by"] = bound_ms(k1_bytes, k1_ops)
+    log(f"{tag}K1 times: kernel {rows['K1']['ms']:.4f} ms (eager call "
+        f"{rows['K1']['eager_ms']:.4f} ms), plain {rows['K1']['plain_ms']:.3f} ms, bound "
+        f"{rows['K1']['bound_ms']:.6f} ms ({k1_bytes} B, {k1_ops} ops)")
 
     # ---- K2 entry A: the frame's cached candidates, a numpy-made scenario
     # and the scenario with every mask off
@@ -1206,13 +1217,10 @@ def _main(torch, drive, skewed) -> int:
         qp, tp, ncp, nsp = gn_odometry.associate_and_solve_plain(*args, **k2_kw)
         torch.cuda.synchronize()
         counts = ((int(nc), int(ns)), (int(ncp), int(nsp)))
-        k2_err = max(k2_err, pose_err(torch, f"K2 A {label}", (q, t), (qp, tp), counts))
+        k2_err = max(k2_err, pose_err(torch, f"{tag}K2 A {label}", (q, t), (qp, tp), counts))
     if float((t - invalid[10]).abs().max()) > 1e-5:
-        raise AssertionError("K2 A all-invalid: the pose moved")
+        raise AssertionError(f"{tag}K2 A all-invalid: the pose moved")
     k2_call = lambda: gn_odometry.associate_and_solve(*frame_k2, **k2_kw)
-    k2_ms = graph_ms(torch, k2_call, 100)
-    k2_eager_ms = cuda_ms(torch, k2_call, 200)
-    k2_plain_ms = cuda_ms(torch, lambda: gn_odometry.associate_and_solve_plain(*frame_k2, **k2_kw), 5)
     Nc, Ns = frame_k2[0].shape[0], frame_k2[4].shape[0]
     _, _, nc, ns = gn_odometry.associate_and_solve(*frame_k2, **k2_kw)
     k2_bytes = Nc * (15 * 4 + 1) + Ns * (21 * 4 + 1) + 2 * 7 * 4 + 8
@@ -1220,10 +1228,15 @@ def _main(torch, drive, skewed) -> int:
         Nc * K2_OPS_ASSOC[0] + Ns * K2_OPS_ASSOC[1]
         + odo.gn_iterations * (int(nc) * K2_OPS_ITER[0] + int(ns) * K2_OPS_ITER[1])
     )
-    k2_bound, k2_by = bound_ms(k2_bytes, k2_ops)
-    log(f"K2 A times: kernel {k2_ms:.4f} ms (eager call {k2_eager_ms:.4f} ms), "
-        f"plain {k2_plain_ms:.3f} ms, bound {k2_bound:.6f} ms ({k2_bytes} B, {k2_ops} ops), "
-        f"cluster {gn_odometry.cluster_size(Nc, Ns, prepared=False)} blocks")
+    rows["K2 A"] = dict(
+        max_abs_err=k2_err, ms=graph_ms(torch, k2_call, 100), eager_ms=cuda_ms(torch, k2_call, 200),
+        plain_ms=cuda_ms(torch, lambda: gn_odometry.associate_and_solve_plain(*frame_k2, **k2_kw), 5))
+    rows["K2 A"]["bound_ms"], rows["K2 A"]["bound_by"] = bound_ms(k2_bytes, k2_ops)
+    log(f"{tag}K2 A times ({int(nc)}/{Nc} corner, {int(ns)}/{Ns} surf valid): kernel "
+        f"{rows['K2 A']['ms']:.4f} ms (eager call {rows['K2 A']['eager_ms']:.4f} ms), plain "
+        f"{rows['K2 A']['plain_ms']:.3f} ms, bound {rows['K2 A']['bound_ms']:.6f} ms "
+        f"({k2_bytes} B, {k2_ops} ops), cluster "
+        f"{gn_odometry.cluster_size(Nc, Ns, prepared=False)} blocks")
 
     # ---- K2 entry B: mapping's prepared factors of a frame with a dense
     # map (captured as mapping passes them in), and all-invalid factors
@@ -1234,7 +1247,7 @@ def _main(torch, drive, skewed) -> int:
         captured.append((args, kw))
         return gn_odometry.gn_solve_prepared_plain(*args, **kw)
 
-    fe = FrontEnd(cfg, device="cuda")
+    fe = FrontEnd(cfg, device=dev)
     for i in range(PREP_FRAME + 1):
         if i == PREP_FRAME:
             gn_odometry.gn_solve_prepared = spy
@@ -1246,7 +1259,7 @@ def _main(torch, drive, skewed) -> int:
     prep_args = tuple(a.clone() for a in prep_args)
     nvc, nvs = int(prep_args[5].sum()), int(prep_args[9].sum())
     if not (nvc > 0 and nvs > 0):
-        raise AssertionError(f"entry B input of frame {PREP_FRAME} has no valid factors")
+        raise AssertionError(f"{tag}entry B input of frame {PREP_FRAME} has no valid factors")
     bad = list(prep_args)
     bad[5], bad[9] = torch.zeros_like(bad[5]), torch.zeros_like(bad[9])
     kb_err = 0.0
@@ -1255,30 +1268,39 @@ def _main(torch, drive, skewed) -> int:
         qp, tp = gn_odometry.gn_solve_prepared_plain(*args, **prep_kw)
         torch.cuda.synchronize()
         nv = (int(args[5].sum()), int(args[9].sum()))
-        kb_err = max(kb_err, pose_err(torch, f"K2 B {label}", (q, t), (qp, tp), (nv, nv)))
+        kb_err = max(kb_err, pose_err(torch, f"{tag}K2 B {label}", (q, t), (qp, tp), (nv, nv)))
     if float((t - bad[1]).abs().max()) > 1e-5:
-        raise AssertionError("K2 B all-invalid: the pose moved")
+        raise AssertionError(f"{tag}K2 B all-invalid: the pose moved")
     kb_call = lambda: gn_odometry.gn_solve_prepared(*prep_args, **prep_kw)
-    kb_ms = graph_ms(torch, kb_call, 100)
-    kb_eager_ms = cuda_ms(torch, kb_call, 200)
-    kb_plain_ms = cuda_ms(torch, lambda: gn_odometry.gn_solve_prepared_plain(*prep_args, **prep_kw), 5)
     Nc, Ns = prep_args[2].shape[0], prep_args[6].shape[0]
     kb_bytes = Nc * (9 * 4 + 1) + Ns * (7 * 4 + 1) + 2 * 7 * 4
     kb_ops = prep_kw["gn_iterations"] * (nvc * K2_OPS_ITER[0] + nvs * K2_OPS_ITER[1])
-    kb_bound, kb_by = bound_ms(kb_bytes, kb_ops)
-    log(f"K2 B times ({nvc}/{Nc} corner, {nvs}/{Ns} surf factors valid): kernel "
-        f"{kb_ms:.4f} ms (eager call {kb_eager_ms:.4f} ms), plain {kb_plain_ms:.3f} ms, "
-        f"bound {kb_bound:.6f} ms ({kb_bytes} B, {kb_ops} ops), "
-        f"cluster {gn_odometry.cluster_size(Nc, Ns, prepared=True)} blocks")
+    rows["K2 B"] = dict(
+        max_abs_err=kb_err, ms=graph_ms(torch, kb_call, 100), eager_ms=cuda_ms(torch, kb_call, 200),
+        plain_ms=cuda_ms(torch, lambda: gn_odometry.gn_solve_prepared_plain(*prep_args, **prep_kw), 5))
+    rows["K2 B"]["bound_ms"], rows["K2 B"]["bound_by"] = bound_ms(kb_bytes, kb_ops)
+    log(f"{tag}K2 B times ({nvc}/{Nc} corner, {nvs}/{Ns} surf factors valid): kernel "
+        f"{rows['K2 B']['ms']:.4f} ms (eager call {rows['K2 B']['eager_ms']:.4f} ms), plain "
+        f"{rows['K2 B']['plain_ms']:.3f} ms, bound {rows['K2 B']['bound_ms']:.6f} ms "
+        f"({kb_bytes} B, {kb_ops} ops), cluster "
+        f"{gn_odometry.cluster_size(Nc, Ns, prepared=True)} blocks")
+    return rows
 
-    log(f"phase wall: build and kernel checks {time.perf_counter() - t_checks:.1f} s")
 
-    # ---- main path: the full-width front end, launches counted
-    t_phase = time.perf_counter()
+def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
+    """cfg's front end through FrontEnd over dev_scans, the kernels' launch
+    counts set to 0 just before and read just after: K1 once a frame, K2 A
+    from the second frame on, K2 B outer_iterations times a frame. Mapped
+    poses within MAX_TRANS_ERR_M of gt; a fired keyframe has a finite,
+    non-empty cloud. Returns (ms/frame past WARM_FRAMES, launches, outputs)."""
+    from scaloam_tpu_torch.models.frontend import FrontEnd
+    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+
+    n = len(dev_scans)
     selection.select_features.launches = 0
     gn_odometry.associate_and_solve.launches = 0
     gn_odometry.gn_solve_prepared.launches = 0
-    fe = FrontEnd(cfg, device="cuda")
+    fe = FrontEnd(cfg, device=dev)
     outs = []
     t_start = None
     for i, scan in enumerate(dev_scans):
@@ -1287,33 +1309,286 @@ def _main(torch, drive, skewed) -> int:
             t_start = time.perf_counter()
         outs.append(fe.step(scan.xyz, scan.mask))
     torch.cuda.synchronize()
-    ms_frame = (time.perf_counter() - t_start) * 1e3 / (N_FRAMES - WARM_FRAMES)
+    ms_frame = (time.perf_counter() - t_start) * 1e3 / (n - WARM_FRAMES)
     launches = {"K1": selection.select_features.launches,
                 "K2 A": gn_odometry.associate_and_solve.launches,
                 "K2 B": gn_odometry.gn_solve_prepared.launches}
-    want = {"K1": N_FRAMES, "K2 A": N_FRAMES - 1,
-            "K2 B": cfg.mapping.outer_iterations * N_FRAMES}
+    want = {"K1": n, "K2 A": n - 1, "K2 B": cfg.mapping.outer_iterations * n}
     if launches != want:
-        raise AssertionError(f"main path launches {launches}, want {want}")
+        raise AssertionError(f"{tag}front end launches {launches}, want {want}")
     mapped = torch.stack([o.mapped_pose.trans for o in outs]).cpu().numpy()
     odom = torch.stack([o.odom_world.trans for o in outs]).cpu().numpy()
     quats = torch.stack([o.mapped_pose.quat for o in outs]).cpu().numpy()
     fires = [bool(o.fire) for o in outs]
     if not (np.isfinite(mapped).all() and np.isfinite(odom).all() and np.isfinite(quats).all()):
-        raise AssertionError("non-finite pose on the main path")
+        raise AssertionError(f"{tag}non-finite pose on the front end")
     rel_gt = np.stack([np.linalg.inv(gt[0]) @ g for g in gt])[:, :3, 3]
     err = np.linalg.norm(mapped - rel_gt, axis=1)
     if err.max() > MAX_TRANS_ERR_M:
-        raise AssertionError(f"mapped translation error {err.max():.3f} m > {MAX_TRANS_ERR_M} m")
+        raise AssertionError(f"{tag}mapped translation error {err.max():.3f} m > {MAX_TRANS_ERR_M} m")
     for o, f in zip(outs, fires):
         n_kf = int(o.kf_mask.sum())
         if f and not (n_kf > 0 and torch.isfinite(o.kf_xyz[o.kf_mask]).all()):
-            raise AssertionError("keyframe fired with an empty or non-finite cloud")
-    log(f"main path: {N_FRAMES} frames, {sum(fires)} keyframes, launches {launches}, "
-        f"{ms_frame:.2f} ms/frame over frames "
-        f"{WARM_FRAMES}-{N_FRAMES - 1}, max mapped-pose error {err.max():.4f} m "
-        f"(mean {err.mean():.4f} m), final odom {odom[-1].round(3).tolist()}")
+            raise AssertionError(f"{tag}keyframe fired with an empty or non-finite cloud")
+    log(f"{tag}front end: {n} frames, {sum(fires)} keyframes, launches {launches}, "
+        f"{ms_frame:.2f} ms/frame over frames {WARM_FRAMES}-{n - 1}, max mapped-pose error "
+        f"{err.max():.4f} m (mean {err.mean():.4f} m), final odom {odom[-1].round(3).tolist()}")
+    return ms_frame, launches, outs
 
+
+def preset_phase(torch, dev, name, scans, gt):
+    """(g1): the kernels at one preset's frame shapes against their plain
+    versions, then the preset's front end over its drive, launches counted."""
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.types import LidarScan
+
+    cfg = config.PRESETS[name]()
+    dev_scans = [LidarScan.from_numpy(s, cfg.sensor.max_points, dev) for s in scans]
+    tag = f"(g1) {name}: "
+    log(f"{tag}{len(scans)} scans of {[len(s) for s in scans[:3]]}... points "
+        f"(max_points {cfg.sensor.max_points}, {cfg.sensor.n_scans} x "
+        f"{cfg.sensor.max_points_per_ring} range image)")
+    rows = kernel_checks(torch, dev, cfg, dev_scans, tag)
+    ms_frame, launches, _ = frontend_drive(torch, dev, cfg, dev_scans, gt, tag)
+    for key, row in rows.items():
+        row["launches"] = launches[key]
+    return {"kernels": rows, "ms_per_frame": ms_frame}
+
+
+def write_mulran(seq, scans, gt):
+    """A sequence in MulRan's layout (io/mulran.py): Ouster float32
+    x, y, z, i quads named by nanosecond stamps at 10 Hz, gps.csv at 4 Hz
+    (stamp, lat, lon, absolute altitude, covariance), global_pose.csv
+    (stamp, 3 x 4 row-major pose). Returns the scans' stamps."""
+    ouster = os.path.join(seq, "sensor_data", "Ouster")
+    os.makedirs(ouster)
+    stamps = G2_T0_NS + np.arange(len(scans), dtype=np.int64) * int(SENSOR_PERIOD_S * 1e9)
+    rng = np.random.default_rng(0)
+    for st, pts in zip(stamps, scans):
+        quad = np.concatenate([pts[:, :3], rng.uniform(0, 1, (len(pts), 1))], 1)
+        quad.astype(np.float32).tofile(os.path.join(ouster, f"{st}.bin"))
+    gps_stamps = np.arange(G2_T0_NS, stamps[-1] + 1, 250_000_000, dtype=np.int64)
+    with open(os.path.join(seq, "sensor_data", "gps.csv"), "w") as f:
+        for st in gps_stamps:
+            # the course is level: the fix reports the same absolute altitude
+            f.write(f"{st},37.5,127.0,{G2_GPS_ALT_M:.4f},1.0,0,0,0,1.0,0,0,0,1.0\n")
+    with open(os.path.join(seq, "global_pose.csv"), "w") as f:
+        for st, T in zip(stamps, gt):
+            f.write(f"{st}," + ",".join(f"{v:.9f}" for v in T[:3, :4].reshape(-1)) + "\n")
+    return stamps
+
+
+def mulran_cli_phase(torch, root, made, counters):
+    """(g2): the README's MulRan usage, `run.main(["--preset",
+    "mulran_os1_64", "--mulran-dir", d, "--use-gps", "--out", o])`, on a
+    synthetic OS1-64 course written in MulRan's layout under build/. The
+    system is recorded (frame times, keyframe flags), the optimise timed
+    with its tier; launches counted. Exit 0, a loop, GPS factors, ATE."""
+    import shutil
+
+    from scaloam_tpu_torch import run
+    from scaloam_tpu_torch.io.artifacts import load_kitti_poses
+    from scaloam_tpu_torch.models import pipeline, posegraph
+    from scaloam_tpu_torch.utils.evaluation import ate_rmse
+
+    base = os.path.join(root, "build", "smoke_mulran")
+    shutil.rmtree(base, ignore_errors=True)
+    seq, out = os.path.join(base, "seq"), os.path.join(base, "out")
+    scans, gt = [m[0] for m in made], np.stack([m[1] for m in made])
+    stamps = write_mulran(seq, scans, gt)
+
+    systems, frame_ms, kf_flags, opt_ms, tiers = [], [], [], [], set()
+    optimize = posegraph.optimize
+
+    def timed_optimize(graph, cfg, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = optimize(graph, cfg, *a, **k)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        N, L = posegraph.node_capacity(graph), posegraph.loop_capacity(graph)
+        tiers.add((N, L, "woodbury" if posegraph.uses_woodbury(N, L, cfg) else
+                   "chain-CG" if N <= cfg.wb_max_nodes else "large chain-CG"))
+        return new
+
+    class Recorded(pipeline.SlamSystem):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            systems.append(self)
+
+        def process_scan(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = super().process_scan(*a, **k)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            kf_flags.append(r.is_keyframe)
+            return r
+
+    system_cls = pipeline.SlamSystem
+    pipeline.SlamSystem, posegraph.optimize = Recorded, timed_optimize
+    for counter in counters:
+        counter.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = run.main(["--preset", "mulran_os1_64", "--mulran-dir", seq, "--use-gps",
+                           "--out", out])
+    finally:
+        pipeline.SlamSystem, posegraph.optimize = system_cls, optimize
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("K1", "K2 A", "K2 B"), (c.launches for c in counters)))
+    if rc != 0:
+        raise AssertionError(f"(g2) run.main --preset mulran_os1_64: exit code {rc}")
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    (s,) = systems
+    n = len(scans)
+    want = {"K1": n, "K2 A": n - 1, "K2 B": s.cfg.mapping.outer_iterations * n}
+    if launches != want:
+        raise AssertionError(f"(g2) launches {launches}, want {want}")
+    n_gps = int(s.graph.gps_valid.sum())
+    est = load_kitti_poses(os.path.join(out, "optimized_poses.txt"))
+    times = np.loadtxt(os.path.join(out, "times.txt")).reshape(-1)
+    frames = np.abs(stamps[None, :] * 1e-9 - times[:, None]).argmin(axis=1)
+    gt_rel = np.stack([np.linalg.inv(gt[0]) @ g for g in gt])
+    ate = ate_rmse(est, gt_rel[frames])
+    if not (res["frames"] == n and res["loops"] >= 1 and n_gps >= 1
+            and s._gps_alt_offset == G2_GPS_ALT_M and len(est) == res["keyframes"]
+            and np.isfinite(est).all() and ate <= SYS_ATE_MAX_M):
+        raise AssertionError(f"(g2) {res}, {n_gps} GPS factors, altitude offset "
+                             f"{s._gps_alt_offset}, ATE {ate:.4f} m")
+    kf = np.asarray(kf_flags)
+    ms = np.asarray(frame_ms)[2:]
+    kf = kf[2:]
+    return {
+        "result": res, "wall_s": wall, "gps_factors": n_gps, "ate_m": ate,
+        "launches": launches, "loops": s.loops_found,
+        "ms_per_frame_keyframe_median": float(np.median(ms[kf])) if kf.any() else None,
+        "ms_per_frame_non_keyframe_median": float(np.median(ms[~kf])) if (~kf).any() else None,
+        "keyframe_frames": int(kf.sum()), "non_keyframe_frames": int((~kf).sum()),
+        "optimise_calls": len(opt_ms), "optimise_ms_first": opt_ms[0] if opt_ms else None,
+        "optimise_ms_median": float(np.median(opt_ms[1:])) if len(opt_ms) > 1 else None,
+        "optimise_tiers": sorted(tiers),
+        "graph_capacity": [posegraph.node_capacity(s.graph), posegraph.loop_capacity(s.graph)],
+    }
+
+
+def mapcloud_phase(torch, dev, system, kf_cloud):
+    """(g3): map_points on (b)'s final mapping state against a host flatten
+    of the same grids (same rows, same order); voxel_downsample on one
+    full-width keyframe cloud, with and without a priority centre, against
+    the same call on the CPU. Returns times and sizes."""
+    from scaloam_tpu_torch.models import mapping
+    from scaloam_tpu_torch.ops import voxel
+
+    cfg, state = system.cfg, system.m_state
+    m = cfg.mapping
+    stats = {}
+    clouds = mapping.map_points(state, cfg)
+    for label, grid, (xyz, mask), cap in (
+            ("corner", state.corner_grid, clouds[0], m.max_corner_map),
+            ("surf", state.surf_grid, clouds[1], m.max_surf_map)):
+        pts, count = grid.pts.cpu().numpy(), grid.count.cpu().numpy()
+        C, K = pts.shape[:2]
+        flat = pts.reshape(-1, 3)[(np.arange(K)[None, :] < count[:, None]).reshape(-1)][:cap]
+        n = len(flat)
+        got_xyz, got_mask = xyz.cpu().numpy(), mask.cpu().numpy()
+        if not (got_xyz.shape == (cap, 3) and got_mask[:n].all() and not got_mask[n:].any()
+                and np.array_equal(got_xyz[:n], flat) and not got_xyz[n:].any() and n > 0):
+            raise AssertionError(f"(g3) map_points {label} differs from the host flatten")
+        stats[label] = {"slots": C * K, "points": int(count.sum()), "capacity": cap, "kept": n}
+    stats["map_points_ms"] = cuda_ms(torch, lambda: mapping.map_points(state, cfg), 5, warmup=1)
+
+    xyz, mask = kf_cloud
+    occupied = len(np.unique(np.floor(xyz[mask].cpu().numpy() / G3_VOXEL_M).astype(np.int64),
+                             axis=0))
+    cap = occupied // 2
+    for label, center in (("plain", None), ("priority_center", torch.zeros(3, device=dev))):
+        call = lambda x, mk, c: voxel.voxel_downsample(x, mk, G3_VOXEL_M, cap,
+                                                       priority_center=c)
+        got = call(xyz, mask, center)
+        want = call(xyz.cpu(), mask.cpu(), None if center is None else center.cpu())
+        if not torch.equal(got[1].cpu(), want[1]):
+            raise AssertionError(f"(g3) voxel_downsample {label}: masks differ from the CPU")
+        err = float((got[0].cpu() - want[0]).abs().max())
+        if err > G3_TOL_M:
+            raise AssertionError(f"(g3) voxel_downsample {label}: centroids {err:.2e} m off")
+        stats[f"voxel_{label}"] = {
+            "points": int(mask.sum()), "occupied_voxels": occupied, "capacity": cap,
+            "kept": int(got[1].sum()), "max_abs_err_m": err,
+            "ms": cuda_ms(torch, lambda: call(xyz, mask, center), 10, warmup=2)}
+    return stats
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    import scaloam_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    # The system drive's scans are made by worker processes while the
+    # kernels build and the earlier phases run.
+    pool = multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+    try:
+        drive = pool.map_async(_scan_job, range(SYS_FRAMES))
+        skewed = pool.apply_async(_deskew_scans)
+        presets = pool.map_async(_preset_drive_job, G_PRESETS)
+        mulran = pool.map_async(_mulran_scan_job, range(G2_FRAMES))
+        return _main(torch, drive, skewed, presets, mulran)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _main(torch, drive, skewed, presets, mulran) -> int:
+    t_script = time.perf_counter()
+
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.ops.kernels import _build, gn_odometry, selection
+    from scaloam_tpu_torch.types import LidarScan
+    from scaloam_tpu_torch.utils import synthetic
+
+    dev = torch.device("cuda")
+    smi = smi_line()
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip().splitlines()[-1]
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  nvcc: {nvcc}")
+    log(f"card: {smi}")
+
+    # ---- build every kernel of the path from csrc/ (parallel nvcc)
+    t0 = t_checks = time.perf_counter()
+    logs = _build.build()
+    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  {name}: {line.strip()}")
+
+    cfg = config.kitti_hdl64()
+    cap = cfg.sensor.max_points
+    t0 = time.perf_counter()
+    world = synthetic.make_world(seed=3, n_boxes=60, extent=70.0)
+    scans, gt = synthetic.simulate_trajectory(
+        world, n_frames=N_FRAMES, speed=1.2, radius=40.0, n_scans=64,
+        n_azimuth=2048, seed=7,
+    )
+    dev_scans = [LidarScan.from_numpy(s, cap, dev) for s in scans]
+    torch.cuda.synchronize()
+    log(f"data: {N_FRAMES} scans of {[len(s) for s in scans[:3]]}... points "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    rows = kernel_checks(torch, dev, cfg, dev_scans)
+    log(f"phase wall: build and kernel checks {time.perf_counter() - t_checks:.1f} s")
+
+    # ---- main path: the full-width front end, launches counted
+    t_phase = time.perf_counter()
+    _, _, outs = frontend_drive(torch, dev, cfg, dev_scans, gt, "main path: ")
+    kf_out = next(o for o in outs if bool(o.fire))
+    kf_cloud = (kf_out.kf_xyz, kf_out.kf_mask)  # for (g3)
     log(f"phase wall: front end {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (a) the pose graph at users' sizes
@@ -1418,27 +1693,55 @@ def _main(torch, drive, skewed) -> int:
         log(f"(f2) world/rank {key}: launches K1 / K2 A / K2 B {row['launches']} for "
             f"{row['local_sequences']} sequence(s) of {F_SEQ_FRAMES} frames")
     log(f"phase wall: (f2) ranks {f2_wall:.1f} s from their start")
+
+    # ---- (g) the other presets at full width, the README's MulRan usage,
+    # the map clouds and the generic voxel filter
+    t_g = t_phase = time.perf_counter()
+    g1 = {}
+    for (name, _), (p_scans, p_gt) in zip(G_PRESETS, presets.get()):
+        g1[name] = preset_phase(torch, dev, name, p_scans, p_gt)
+    log(f"phase wall: (g1) presets {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    g2 = mulran_cli_phase(torch, os.getcwd(), mulran.get(), counters)
+    log(f"(g2) {json.dumps(g2)}")
+    log(f"(g2) run.main --preset mulran_os1_64 --mulran-dir --use-gps: "
+        f"{g2['result']['frames']} frames, {g2['result']['keyframes']} keyframes, loops "
+        f"{g2['loops']}, {g2['gps_factors']} GPS factors, ATE {g2['ate_m']:.4f} m, "
+        f"launches {g2['launches']}; ms/frame keyframe median "
+        f"{g2['ms_per_frame_keyframe_median']}, non-keyframe median "
+        f"{g2['ms_per_frame_non_keyframe_median']}; optimise {g2['optimise_calls']} calls "
+        f"(first {g2['optimise_ms_first']:.1f} ms, median {g2['optimise_ms_median']:.1f} ms) "
+        f"at tiers (nodes, loops, solver) {g2['optimise_tiers']}")
+    log(f"phase wall: (g2) MulRan CLI {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    g3 = mapcloud_phase(torch, dev, sys_stats["system"], kf_cloud)
+    log(f"(g3) {json.dumps(g3)}")
+    log(f"phase wall: (g3) map clouds and voxel filter {time.perf_counter() - t_phase:.1f} s; "
+        f"(g) {time.perf_counter() - t_g:.1f} s")
     log(f"script wall: {time.perf_counter() - t_script:.1f} s")
 
     gn_src = "scaloam_tpu_torch/csrc/gn_odometry.cu"
-    kernels = [
-        {"name": "select_features", "route": "cuda",
-         "source": "scaloam_tpu_torch/csrc/selection.cu",
-         "replaces": "scaloam_tpu/ops/pallas/selection.py:96",
-         "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms, "eager_ms": k1_eager_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None, "matched": True},
-        {"name": "associate_and_solve", "route": "cuda", "source": gn_src,
-         "replaces": "scaloam_tpu/ops/pallas/gn_odometry.py:316",
-         "launches": launches["K2 A"], "max_abs_err": k2_err, "ms": k2_ms, "eager_ms": k2_eager_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None, "matched": True},
-        {"name": "gn_solve_prepared", "route": "cuda", "source": gn_src,
-         "replaces": "scaloam_tpu/models/mapping.py:187",
-         "launches": launches["K2 B"], "max_abs_err": kb_err, "ms": kb_ms, "eager_ms": kb_eager_ms,
-         "plain_ms": kb_plain_ms, "bound_ms": kb_bound, "bound_by": kb_by,
-         "library_ms": None, "matched": True},
-    ]
+    meta = {
+        "K1": {"name": "select_features", "source": "scaloam_tpu_torch/csrc/selection.cu",
+               "replaces": "scaloam_tpu/ops/pallas/selection.py:96"},
+        "K2 A": {"name": "associate_and_solve", "source": gn_src,
+                 "replaces": "scaloam_tpu/ops/pallas/gn_odometry.py:316"},
+        "K2 B": {"name": "gn_solve_prepared", "source": gn_src,
+                 "replaces": "scaloam_tpu/models/mapping.py:187"},
+    }
+    kernels = []
+    for key, m in meta.items():
+        row = rows[key]
+        kernels.append({
+            "name": m["name"], "route": "cuda", "source": m["source"], "replaces": m["replaces"],
+            "launches": launches[key], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "eager_ms": row["eager_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "matched": True,
+            "g1": {name: {k: g1[name]["kernels"][key][k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for name in g1},
+            "launches_g2": g2["launches"][key]})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -154,3 +154,13 @@ def mapping_step(state: MappingState, odom_pose: Pose, corner_cloud: FeatureClou
         pose=pose, correction=correction, n_corner_corr=n_c, n_surf_corr=n_s,
         map_corner_count=corner_grid.total, map_surf_count=surf_grid.total,
     )
+
+
+def map_points(state: MappingState, cfg: SlamConfig):
+    """Flattened (corner, surf) map clouds at max_corner_map / max_surf_map
+    (the reference's /laser_cloud_map publication).
+    Returns ((corner_xyz, corner_mask), (surf_xyz, surf_mask))."""
+    m = cfg.mapping
+    cx, cm = gridmap.extract_points(state.corner_grid, m.max_corner_map)
+    sx, sm = gridmap.extract_points(state.surf_grid, m.max_surf_map)
+    return (cx, cm), (sx, sm)

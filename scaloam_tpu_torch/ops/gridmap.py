@@ -163,3 +163,13 @@ def knn_grid(grid: GridMap, query: torch.Tensor, query_mask: torch.Tensor,
     d_k, nn = _voxel.argmin_topk(d2.reshape(Q, -1), k, cand.reshape(Q, -1, 3))
     d_out = torch.where(query_mask[:, None], d_k, _voxel.BIG)
     return d_out, nn
+
+
+def extract_points(grid: GridMap, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The valid map points (entry < count[cell]) in flat cell-major order,
+    compacted to `capacity` (for visualization / artifacts).
+    Returns (xyz [capacity, 3], mask [capacity])."""
+    K = grid.pts.shape[1]
+    m = (torch.arange(K, device=grid.pts.device)[None, :] < grid.count[:, None]).reshape(-1)
+    mm, xx = _voxel.compact(m, capacity, grid.pts.reshape(-1, 3))
+    return xx, mm

@@ -18,6 +18,7 @@ import torch
 
 BIG = 1e30  # sentinel distance for masked pairs
 _INT32_MAX = 2**31 - 1
+_SENTINEL = 2**30  # voxel key of an invalid point: sorts after every real one
 
 
 def _zero_of(a: torch.Tensor) -> torch.Tensor:
@@ -70,6 +71,60 @@ def _window_sums(vals, sn, dim: int, mean_window: int):
             f = f & _shift_up(f, step, dim, fill=False)
         step *= 2
     return acc, cnt
+
+
+def _lexsort(keys) -> torch.Tensor:
+    """numpy.lexsort's order (the last key is the primary one, ties keep
+    index order) by chained stable sorts, least significant key first."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def voxel_downsample(
+    xyz: torch.Tensor,
+    mask: torch.Tensor,
+    voxel_size: float,
+    capacity: int,
+    extra: Optional[torch.Tensor] = None,
+    group_key: Optional[torch.Tensor] = None,
+    priority_center: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Centroid voxel filter with fixed output capacity (the reference's
+    generic filter, PCL VoxelGrid semantics).
+
+    Voxels are ordered by (group_key, [Chebyshev cell distance to
+    priority_center], x, y, z) and numbered in that order; voxels past
+    `capacity` are dropped, so `priority_center` keeps the nearest ones
+    when the occupied-voxel count overflows. Invalid points carry the
+    sentinel 2**30 in every key and sort last. `extra` [N, E] is
+    centroid-averaged alongside.
+    Returns (xyz [capacity, 3], mask [capacity], extra [capacity, E] or None)."""
+    n = xyz.shape[0]
+    coords = torch.where(mask[:, None], torch.floor(xyz / voxel_size).to(torch.int32),
+                         _SENTINEL)
+    gk = (torch.where(mask, group_key.to(torch.int32), _SENTINEL) if group_key is not None
+          else torch.zeros(n, dtype=torch.int32, device=xyz.device))
+    keys = [coords[:, 2], coords[:, 1], coords[:, 0]]
+    if priority_center is not None:
+        cc = torch.floor(priority_center / voxel_size).to(torch.int32)
+        dist = torch.amax(torch.abs(coords - cc[None, :]), dim=-1)
+        keys.append(torch.where(mask, dist, _SENTINEL))
+    order = _lexsort(keys + [gk])
+    coords_s, gk_s, mask_s = coords[order], gk[order], mask[order]
+
+    same = torch.all(coords_s[1:] == coords_s[:-1], dim=-1) & (gk_s[1:] == gk_s[:-1])
+    new_voxel = ~torch.cat([same.new_zeros(1), same]) & mask_s
+    seg = torch.cumsum(new_voxel.to(torch.int64), 0) - 1  # first voxel -> 0
+    seg = torch.clamp(torch.where(mask_s, seg, capacity), max=capacity)  # overflow bin
+
+    ones = mask_s.to(torch.float32)
+    vals = xyz[order] if extra is None else torch.cat([xyz, extra], dim=1)[order]
+    sums = vals.new_zeros((capacity + 1, vals.shape[1])).index_add_(0, seg, vals * ones[:, None])
+    counts = ones.new_zeros(capacity + 1).index_add_(0, seg, ones)[:capacity]
+    out = sums[:capacity] / torch.clamp(counts, min=1.0)[:, None]
+    return out[:, :3], counts > 0, (out[:, 3:] if extra is not None else None)
 
 
 def voxel_downsample_packed(

@@ -36,6 +36,10 @@ class LidarScan(NamedTuple):
     xyz: torch.Tensor
     mask: torch.Tensor
 
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[-2]
+
     @staticmethod
     def from_numpy(points: np.ndarray, capacity: int, device=None) -> "LidarScan":
         """Pad/truncate an [n, 3+] float array into a fixed-capacity scan
@@ -66,6 +70,10 @@ class FeatureCloud(NamedTuple):
     ring: torch.Tensor  # [M] float32 (ring id; padding = -1)
     rel_time: torch.Tensor  # [M] float32
     mask: torch.Tensor  # [M] bool
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[-2]
 
     @staticmethod
     def empty(capacity: int, device) -> "FeatureCloud":

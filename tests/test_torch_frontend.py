@@ -266,7 +266,7 @@ def test_entry_points_require_a_device_without_gpu(monkeypatch):
         TScan.from_numpy(np.zeros((4, 3), np.float32), 8)
 
 
-def test_deskew_path_is_not_ported(monkeypatch):
+def test_deskew_path_runs_with_entry_a_gated_off(monkeypatch):
     """The de-skew path (distortion=True), once refused, runs: K2 entry A is
     gated off there as the reference gates its kernel off, and called with
     distortion off (tests/test_torch_deskew.py holds the path to JAX)."""

@@ -347,7 +347,7 @@ def test_entry_points_require_a_device_without_gpu(monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv", [["--backend-device", "1"],
                                   ["--backend-device", "1", "--async-pipeline"]])
-def test_cli_refuses_unported_modes(argv, capsys):
+def test_cli_refuses_backend_device_out_of_range(argv, capsys):
     assert trun.main(argv + ["--synthetic", "2", "--device", "cpu"]) == 2
     assert "out of range" in capsys.readouterr().err
 
