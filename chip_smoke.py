@@ -67,11 +67,22 @@ to 0 just before it and read just after:
 - (g3) `mapping.map_points` on (b)'s final mapping state against a host
   flatten of the same grids (same rows, same order), and the generic
   `voxel.voxel_downsample` on a main-path keyframe cloud, with and without
-  a priority centre, against the same call on the CPU; both timed.
+  a priority centre, against the same call on the CPU; both timed;
+- (h) the batched multi-sequence front end in a world of one: 8
+  full-width kitti_hdl64 sequences (sequence s is frames s .. s + 3 of the
+  main path's drive) through `multiseq.frame_batch`, one vmapped step a
+  frame, against each sequence through the same stages alone (feature
+  clouds equal, poses within 5e-4 / 5e-3 m), launches K1 1, K2 A 1 (0 on
+  the first frame), K2 B 2 a batched frame, vmap's per-sample fallback
+  an error; ms per batched frame at 1, 2, 4 and 8 sequences beside the
+  loop's, the 8-sequence drive's peak memory; each batched kernel entry
+  at 8 problems bit-equal to a launch a problem, held against its plain
+  version and timed in a CUDA graph beside 8 single launches.
 
 The last three lines of standard output are the kernel table (JSON, with
 the launches of the system drive, and per kernel the (g1) rows and the
-(g2) launches), the card's name and power limit, and
+(g2) launches, then a row for each batched entry at (h)'s 8 problems,
+with (h)'s launches), the card's name and power limit, and
 the device line (JSON). Any mismatch or error raises, so the exit code is
 non-zero. Without a GPU it exits non-zero and prints no result.
 """
@@ -152,6 +163,14 @@ G2_GPS_ALT_M = 42.0
 G2_T0_NS = 1_561_000_000_000_000_000  # a MulRan-era stamp (ns)
 G3_VOXEL_M = 1.0
 G3_TOL_M = 1e-4  # float sums in another order on the card
+# (h) the batched multi-sequence front end: sequence s is frames s .. s + 3
+# of the main path's drive; the batch sizes timed; the port's odometry and
+# mapped-pose tolerances (tests/test_torch_frontend.py) between the batched
+# program and each sequence run alone.
+H_SEQ = 8
+H_FRAMES = 4
+H_BATCHES = (1, 2, 4, 8)
+H_Q_TOL, H_T_TOL = 5e-4, 5e-3
 
 
 def log(*a):
@@ -332,6 +351,24 @@ def count_launches(torch, fn):
         out = fn()
         torch.cuda.synchronize()
     return out, sum(1 for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _launch_counts():
+    """The kernels' launch counters, by kernel."""
+    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+
+    return {"K1": selection.select_features.launches,
+            "K2 A": gn_odometry.associate_and_solve.launches,
+            "K2 B": gn_odometry.gn_solve_prepared.launches}
+
+
+def _zero_launches():
+    """Set every kernel's launch counter to 0."""
+    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+
+    for fn in (selection.select_features, gn_odometry.associate_and_solve,
+               gn_odometry.gn_solve_prepared):
+        fn.launches = 0
 
 
 class SyncCounter:
@@ -916,7 +953,7 @@ def _f2_rank(device, world, rank, store, inputs_path, out_path):
         p = multiseq.gather_poses(m_pose, mesh)
         mapped.append(torch.cat([p.quat, p.trans], dim=-1))
     torch.cuda.synchronize()
-    out.update(launches=[c.launches for c in counters], local_sequences=len(o_states),
+    out.update(launches=[c.launches for c in counters], local_sequences=multiseq.num_sequences(o_states),
                multiseq_s=time.perf_counter() - t0, mapped=torch.stack(mapped, dim=1))
     if world >= 4:
         res = dryrun.dryrun(dev, cfg=cfg)
@@ -1046,8 +1083,8 @@ def check_f2(torch, single, outs) -> dict:
         label = f"(f2) world {world} rank {rank}"
         diff = _check_sharded(label, torch, out, single)
         seq_m = float((out["mapped"][..., 4:] - single["mapped"][..., 4:]).abs().max())
-        n = out["local_sequences"]
-        want = [F_SEQ_FRAMES * n, (F_SEQ_FRAMES - 1) * n, outer * F_SEQ_FRAMES * n]
+        # one launch of each a batched frame, whatever the rank's sequences
+        want = [F_SEQ_FRAMES, F_SEQ_FRAMES - 1, outer * F_SEQ_FRAMES]
         if not (seq_m <= F_SEQ_TOL_M and torch.isfinite(out["mapped"]).all()):
             raise AssertionError(f"{label}: multiseq mapped poses {seq_m:.2e} m from the "
                                  f"one-sequence run")
@@ -1117,6 +1154,33 @@ def backend_device_phase(torch, dev, root, cfg, scans, first, counters):
     return stats
 
 
+def k1_cost(torch, feat, curv, sp, ep):
+    """(bytes, operations) K1 needs on these rows: each input read and each
+    output written once; per scanned point of a round, a flag test, the
+    threshold and a max compare."""
+    W = curv.shape[-1]
+    rows = curv.numel() // W
+    n_rounds = feat.less_sharp_per_subregion + feat.flat_per_subregion
+    n_bytes = rows * W * (4 + 4 + 4 + 1) + 2 * sp.numel() * 4 + sp.numel() * n_rounds * 5 + rows * W
+    scanned = n_rounds * int(torch.clamp(ep - sp + 1, min=0).sum())
+    return n_bytes, 3 * scanned
+
+
+def k2a_cost(odo, Nc, Ns, n_valid_c, n_valid_s):
+    """(bytes, operations) of one entry-A problem with these valid counts."""
+    n_bytes = Nc * (15 * 4 + 1) + Ns * (21 * 4 + 1) + 2 * 7 * 4 + 8
+    n_ops = odo.outer_iterations * (
+        Nc * K2_OPS_ASSOC[0] + Ns * K2_OPS_ASSOC[1]
+        + odo.gn_iterations * (n_valid_c * K2_OPS_ITER[0] + n_valid_s * K2_OPS_ITER[1]))
+    return n_bytes, n_ops
+
+
+def k2b_cost(gn_iterations, Nc, Ns, n_valid_c, n_valid_s):
+    """(bytes, operations) of one entry-B problem with these valid factors."""
+    n_bytes = Nc * (9 * 4 + 1) + Ns * (7 * 4 + 1) + 2 * 7 * 4
+    return n_bytes, gn_iterations * (n_valid_c * K2_OPS_ITER[0] + n_valid_s * K2_OPS_ITER[1])
+
+
 def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
     """Each kernel entry against its plain version at the shapes of cfg's
     frames (dev_scans, on the card), then timed. K1 on frame 1's selection
@@ -1170,11 +1234,7 @@ def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
         log(f"{tag}K1 {label} ({S} x {W}): kernel == plain on all {len(names)} outputs "
             f"({int(got[1].sum())} corner, {int(got[3].sum())} flat picks)")
     k1_call = lambda: selection.select_features(*frame_args, **sel_kw)
-    n_rounds = feat.less_sharp_per_subregion + feat.flat_per_subregion
-    k1_bytes = (S * W * (4 + 4 + 4 + 1) + 2 * si.sp.numel() * 4
-                + si.sp.numel() * n_rounds * 5 + S * W)
-    scanned = n_rounds * int(torch.clamp(si.ep - si.sp + 1, min=0).sum())
-    k1_ops = 3 * scanned  # per scanned point: flag test, threshold, max compare
+    k1_bytes, k1_ops = k1_cost(torch, feat, si.curv, si.sp, si.ep)
     rows["K1"] = dict(
         max_abs_err=k1_err, ms=graph_ms(torch, k1_call, 100), eager_ms=cuda_ms(torch, k1_call, 200),
         plain_ms=cuda_ms(torch, lambda: selection.select_features_plain(*frame_args, **sel_kw), 5))
@@ -1223,11 +1283,7 @@ def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
     k2_call = lambda: gn_odometry.associate_and_solve(*frame_k2, **k2_kw)
     Nc, Ns = frame_k2[0].shape[0], frame_k2[4].shape[0]
     _, _, nc, ns = gn_odometry.associate_and_solve(*frame_k2, **k2_kw)
-    k2_bytes = Nc * (15 * 4 + 1) + Ns * (21 * 4 + 1) + 2 * 7 * 4 + 8
-    k2_ops = odo.outer_iterations * (
-        Nc * K2_OPS_ASSOC[0] + Ns * K2_OPS_ASSOC[1]
-        + odo.gn_iterations * (int(nc) * K2_OPS_ITER[0] + int(ns) * K2_OPS_ITER[1])
-    )
+    k2_bytes, k2_ops = k2a_cost(odo, Nc, Ns, int(nc), int(ns))
     rows["K2 A"] = dict(
         max_abs_err=k2_err, ms=graph_ms(torch, k2_call, 100), eager_ms=cuda_ms(torch, k2_call, 200),
         plain_ms=cuda_ms(torch, lambda: gn_odometry.associate_and_solve_plain(*frame_k2, **k2_kw), 5))
@@ -1273,8 +1329,7 @@ def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
         raise AssertionError(f"{tag}K2 B all-invalid: the pose moved")
     kb_call = lambda: gn_odometry.gn_solve_prepared(*prep_args, **prep_kw)
     Nc, Ns = prep_args[2].shape[0], prep_args[6].shape[0]
-    kb_bytes = Nc * (9 * 4 + 1) + Ns * (7 * 4 + 1) + 2 * 7 * 4
-    kb_ops = prep_kw["gn_iterations"] * (nvc * K2_OPS_ITER[0] + nvs * K2_OPS_ITER[1])
+    kb_bytes, kb_ops = k2b_cost(prep_kw["gn_iterations"], Nc, Ns, nvc, nvs)
     rows["K2 B"] = dict(
         max_abs_err=kb_err, ms=graph_ms(torch, kb_call, 100), eager_ms=cuda_ms(torch, kb_call, 200),
         plain_ms=cuda_ms(torch, lambda: gn_odometry.gn_solve_prepared_plain(*prep_args, **prep_kw), 5))
@@ -1294,12 +1349,9 @@ def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
     poses within MAX_TRANS_ERR_M of gt; a fired keyframe has a finite,
     non-empty cloud. Returns (ms/frame past WARM_FRAMES, launches, outputs)."""
     from scaloam_tpu_torch.models.frontend import FrontEnd
-    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
 
     n = len(dev_scans)
-    selection.select_features.launches = 0
-    gn_odometry.associate_and_solve.launches = 0
-    gn_odometry.gn_solve_prepared.launches = 0
+    _zero_launches()
     fe = FrontEnd(cfg, device=dev)
     outs = []
     t_start = None
@@ -1310,9 +1362,7 @@ def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
         outs.append(fe.step(scan.xyz, scan.mask))
     torch.cuda.synchronize()
     ms_frame = (time.perf_counter() - t_start) * 1e3 / (n - WARM_FRAMES)
-    launches = {"K1": selection.select_features.launches,
-                "K2 A": gn_odometry.associate_and_solve.launches,
-                "K2 B": gn_odometry.gn_solve_prepared.launches}
+    launches = _launch_counts()
     want = {"K1": n, "K2 A": n - 1, "K2 B": cfg.mapping.outer_iterations * n}
     if launches != want:
         raise AssertionError(f"{tag}front end launches {launches}, want {want}")
@@ -1521,6 +1571,318 @@ def mapcloud_phase(torch, dev, system, kf_cloud):
     return stats
 
 
+def _qt(pose, torch):
+    return torch.cat([pose.quat, pose.trans], dim=-1)
+
+
+def _h_loop(torch, cfg, xyz, mask, capture=None):
+    """(h)'s reference: every sequence through features -> odometry ->
+    mapping alone, one frame of each sequence after the other (the
+    single-sequence path). xyz [F, B, P, 3], mask [F, B, P]. With `capture`
+    (a dict), the last frame's K2 A call and first K2 B call of each
+    sequence record their arguments there. Returns (odometry poses
+    [F, B, 7], mapped poses [F, B, 7], the feature clouds each frame leaves
+    in the odometry state, ms per frame of all B sequences past the first)."""
+    from scaloam_tpu_torch.models import mapping, odometry
+    from scaloam_tpu_torch.ops import features
+    from scaloam_tpu_torch.ops.kernels import gn_odometry
+    from scaloam_tpu_torch.types import LidarScan
+
+    F, B = xyz.shape[:2]
+    dev = xyz.device
+    states = [(odometry.init_state(cfg, dev), mapping.init_state(cfg, dev)) for _ in range(B)]
+    odom, mapped, clouds = [], [], []
+    kernels = (gn_odometry.associate_and_solve, gn_odometry.gn_solve_prepared)
+
+    def spy(key, fn):
+        def call(*a, **k):
+            if key not in capture["seen"]:
+                capture["seen"].add(key)
+                capture[key].append(([x.clone() for x in a], k))
+            return fn(*a, **k)
+        return call
+
+    t0 = None
+    for f in range(F):
+        if f == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        row_o, row_m, row_c = [], [], []
+        for s in range(B):
+            if capture is not None and f == F - 1:
+                capture["seen"] = set()
+                gn_odometry.associate_and_solve = spy("K2 A", kernels[0])
+                gn_odometry.gn_solve_prepared = spy("K2 B", kernels[1])
+            try:
+                o, m = states[s]
+                feats = features.extract_features(LidarScan(xyz[f, s], mask[f, s]), cfg)
+                o, o_out = odometry.odometry_step(o, feats, cfg)
+                m, m_out = mapping.mapping_step(m, o_out.world, feats.less_sharp,
+                                                feats.less_flat, cfg)
+            finally:
+                gn_odometry.associate_and_solve, gn_odometry.gn_solve_prepared = kernels
+            states[s] = (o, m)
+            row_o.append(_qt(o_out.world, torch))
+            row_m.append(_qt(m_out.pose, torch))
+            row_c.append((o.last_corner, o.last_surf))
+        odom.append(torch.stack(row_o))
+        mapped.append(torch.stack(row_m))
+        clouds.append(row_c)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (F - 1)
+    return torch.stack(odom), torch.stack(mapped), clouds, ms
+
+
+def _h_batched(torch, cfg, xyz, mask):
+    """multiseq.frame_batch over the B = xyz.shape[1] sequences, one frame
+    of all of them a call, the launches checked every frame: K1 1, K2 A 1
+    (0 on the first frame), K2 B outer_iterations. Returns (odometry poses
+    [F, B, 7], mapped poses [F, B, 7], the odometry states after each
+    frame, ms per batched frame past the first)."""
+    from scaloam_tpu_torch.parallel import multiseq
+
+    F, B = xyz.shape[:2]
+    o, m = multiseq.init_states(B, cfg, xyz.device)
+    odom, mapped, states = [], [], []
+    t0 = None
+    for f in range(F):
+        if f == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        _zero_launches()
+        o, m, o_pose, m_pose = multiseq.frame_batch(o, m, xyz[f], mask[f], cfg)
+        got = _launch_counts()
+        want = {"K1": 1, "K2 A": int(f > 0), "K2 B": cfg.mapping.outer_iterations}
+        if got != want:
+            raise AssertionError(f"(h) B={B} frame {f}: launches {got}, want {want}")
+        odom.append(_qt(o_pose, torch))
+        mapped.append(_qt(m_pose, torch))
+        states.append(o)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (F - 1)
+    return torch.stack(odom), torch.stack(mapped), states, ms
+
+
+def _h_profile(torch, cfg, xyz, mask):
+    """The last frame of xyz's sequences as one batched frame under
+    torch.profiler, after the earlier frames unprofiled: wall ms, device ms
+    (kernel time summed), kernels launched, idle share, and the five ops
+    with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scaloam_tpu_torch.parallel import multiseq
+
+    o, m = multiseq.init_states(xyz.shape[1], cfg, xyz.device)
+    for f in range(xyz.shape[0] - 1):
+        o, m, _, _ = multiseq.frame_batch(o, m, xyz[f], mask[f], cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        multiseq.frame_batch(o, m, xyz[-1], mask[-1], cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_op = {}
+    for e in kernels:
+        by_op[e.name] = by_op.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "device_ms": device, "kernels": len(kernels),
+            "idle_share": 1 - device / wall, "top_kernels_ms": [[k[:60], v] for k, v in top]}
+
+
+def _h_pose_diff(torch, got, want):
+    """Largest |dq| (sign aligned) and |dt| between [..., 7] poses."""
+    sign = torch.where((got[..., :4] * want[..., :4]).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+    return (float((got[..., :4] * sign - want[..., :4]).abs().max()),
+            float((got[..., 4:] - want[..., 4:]).abs().max()))
+
+
+def _h_kernel(torch, key, batched, single, plain, equal, n_problems, cost, tag="(h) "):
+    """One batched entry at B = n_problems: its single launch counted, bit
+    equal to a launch a problem (`single(b)`), held against its plain version
+    (`equal(got, plain())` returns the largest difference, raising past the
+    tolerance), timed in a CUDA graph beside n_problems times the single
+    launch. Returns the row for the kernel table."""
+    _zero_launches()
+    got = batched()
+    torch.cuda.synchronize()
+    if _launch_counts()[key] != 1:
+        raise AssertionError(f"{tag}{key} batched: {_launch_counts()[key]} launches, want 1")
+    for b in range(n_problems):
+        one = single(b)
+        for i, (g, w) in enumerate(zip(got, one)):
+            if not torch.equal(g[b], w):
+                raise AssertionError(f"{tag}{key} batched output {i} of problem {b} differs "
+                                     "from its own launch")
+    err = equal(got, plain())
+    ms = graph_ms(torch, batched, 50)
+    single_ms = graph_ms(torch, lambda: single(0), 50)
+    row = {"max_abs_err": err, "ms": ms, "single_ms": single_ms,
+           "plain_ms": cuda_ms(torch, plain, 2, warmup=1), "bit_equal_per_problem": True}
+    row["bound_ms"], row["bound_by"] = bound_ms(*cost)
+    log(f"{tag}{key} batched at B={n_problems}: 1 launch, bit-equal to {n_problems} single "
+        f"launches, within {err:.2e} of the plain version; {ms:.4f} ms in a CUDA graph "
+        f"against {n_problems} x {single_ms:.4f} = {n_problems * single_ms:.4f} ms single, "
+        f"plain {row['plain_ms']:.2f} ms, bound {row['bound_ms']:.6f} ms ({cost[0]} B, "
+        f"{cost[1]} ops, by {row['bound_by']})")
+    return row
+
+
+def multiseq_phase(torch, dev, cfg, dev_scans):
+    """(h): the batched multi-sequence front end on the card at full width.
+    H_SEQ sequences, sequence s frames s .. s + H_FRAMES - 1 of the main
+    path's drive, in a world of one without a mesh: `multiseq.frame_batch`
+    (one vmapped step over the stacked states) against each sequence through
+    the same stages alone (equal feature clouds, so equal K1 picks; poses
+    within H_Q_TOL / H_T_TOL), launches K1 1, K2 A 1 (0 on the first frame),
+    K2 B 2 a batched frame; ms per batched frame at each of H_BATCHES
+    beside the loop's; the B = H_SEQ drive's peak memory; each batched
+    kernel entry at B = H_SEQ bit-equal to a launch a problem and held
+    against its plain version. vmap's per-sample fallback warning is an
+    error throughout. Returns (stats, kernel rows)."""
+    from scaloam_tpu_torch.ops import features
+    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+    from scaloam_tpu_torch.parallel import multiseq
+    from scaloam_tpu_torch.types import LidarScan
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=multiseq.FALLBACK_WARNING)
+        xyz = torch.stack([torch.stack([dev_scans[s + f].xyz for s in range(H_SEQ)])
+                           for f in range(H_FRAMES)])
+        mask = torch.stack([torch.stack([dev_scans[s + f].mask for s in range(H_SEQ)])
+                            for f in range(H_FRAMES)])
+        capture = {"K2 A": [], "K2 B": []}
+        want_o, want_m, want_c, _ = _h_loop(torch, cfg, xyz, mask, capture)
+        _, _, _, loop_ms = _h_loop(torch, cfg, xyz, mask)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        got_o, got_m, states, ms8 = _h_batched(torch, cfg, xyz, mask)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for f, (o, row) in enumerate(zip(states, want_c)):
+            for s, (corner, surf) in enumerate(row):
+                for name, a, b in (("less-sharp", o.last_corner, corner),
+                                   ("less-flat", o.last_surf, surf)):
+                    for field in a._fields:
+                        if not torch.equal(getattr(a, field)[s], getattr(b, field)):
+                            raise AssertionError(f"(h) frame {f} sequence {s}: the {name} "
+                                                 f"cloud's {field} differs from the loop's")
+        dq_o, dt_o = _h_pose_diff(torch, got_o, want_o)
+        dq_m, dt_m = _h_pose_diff(torch, got_m, want_m)
+        if not (dq_o <= H_Q_TOL and dt_o <= H_T_TOL and dq_m <= H_Q_TOL and dt_m <= H_T_TOL):
+            raise AssertionError(f"(h) batched vs loop: odometry |dq| {dq_o:.2e} |dt| {dt_o:.2e}, "
+                                 f"mapped |dq| {dq_m:.2e} |dt| {dt_m:.2e}")
+        moved = float(want_m[-1, :, 4:].norm(dim=-1).min())
+        log(f"(h) frame_batch over {H_SEQ} sequences x {H_FRAMES} frames: feature clouds "
+            f"(K1's picks) equal to the loop's on every frame; largest difference odometry "
+            f"|dq| {dq_o:.2e} |dt| {dt_o:.2e} m, mapped |dq| {dq_m:.2e} |dt| {dt_m:.2e} m "
+            f"(tol {H_Q_TOL} / {H_T_TOL}); least distance driven {moved:.2f} m; launches a "
+            f"batched frame K1 1, K2 A 1 (0 on the first), K2 B "
+            f"{cfg.mapping.outer_iterations}; peak memory {peak / 2**30:.3f} GiB "
+            f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before)")
+        if not moved > 1.0:
+            raise AssertionError(f"(h) the sequences did not move ({moved:.3f} m)")
+
+        ms_batched = {H_SEQ: ms8}
+        for B in H_BATCHES:
+            if B != H_SEQ:
+                ms_batched[B] = _h_batched(torch, cfg, xyz[:, :B].contiguous(),
+                                           mask[:, :B].contiguous())[3]
+        log("(h) ms per batched frame (frames 1-3): " + ", ".join(
+            f"B={B} {ms_batched[B]:.2f} ({ms_batched[B] / B:.2f} a sequence)"
+            for B in H_BATCHES) + f"; the loop over {H_SEQ} sequences {loop_ms:.2f} "
+            f"({loop_ms / H_SEQ:.2f} a sequence), {loop_ms / ms8:.2f}x the batched B={H_SEQ}")
+        profiled = {B: _h_profile(torch, cfg, xyz[:, :B], mask[:, :B]) for B in (1, H_SEQ)}
+        for B, pr in profiled.items():
+            log(f"(h) one batched frame of B={B} under the profiler: wall {pr['wall_ms']:.2f} ms, "
+                f"device {pr['device_ms']:.2f} ms, {pr['kernels']} kernels, idle share "
+                f"{pr['idle_share']:.3f}; most device time: {pr['top_kernels_ms']}")
+
+        # ---- the batched kernel entries at B = H_SEQ
+        feat, odo = cfg.features, cfg.odometry
+        sel_kw = dict(n_sub=feat.n_subregions, n_corner=feat.less_sharp_per_subregion,
+                      n_flat=feat.flat_per_subregion, curv_thr=feat.curvature_threshold)
+        si = [features.selection_inputs(LidarScan(xyz[-1, s], mask[-1, s]), cfg)
+              for s in range(H_SEQ)]
+        k1_args = tuple(torch.stack([getattr(x, n) for x in si]) for n in (
+            "curv", "left_ext", "right_ext", "eligible", "sp", "ep"))
+        S, W = k1_args[0].shape[1:]
+
+        def k1_equal(got, want):
+            want = [w.reshape(H_SEQ, S, *w.shape[1:]) for w in want]
+            for i, (g, w) in enumerate(zip(got, want)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"(h) K1 batched output {i} differs from the plain "
+                                         f"version at {int((g != w).sum())} entries")
+            return 0
+
+        rows = {"K1": _h_kernel(
+            torch, "K1", lambda: torch.func.vmap(
+                lambda *a: selection.select_features(*a, **sel_kw))(*k1_args),
+            lambda b: selection.select_features(*(a[b] for a in k1_args), **sel_kw),
+            lambda: selection.select_features_plain(
+                *(a.reshape(H_SEQ * S, *a.shape[2:]) for a in k1_args), **sel_kw),
+            k1_equal, H_SEQ, k1_cost(torch, feat, k1_args[0], k1_args[4], k1_args[5]))}
+
+        def pose_equal(label):
+            def check(got, want):
+                err = 0.0
+                for b in range(H_SEQ):
+                    counts = None
+                    if len(got) == 4:
+                        counts = ((int(got[2][b]), int(got[3][b])),
+                                  (int(want[b][2]), int(want[b][3])))
+                    err = max(err, pose_err(torch, f"(h) {label} problem {b}",
+                                            (got[0][b], got[1][b]), want[b][:2], counts))
+                return err
+            return check
+
+        a_args, a_kw = capture["K2 A"][0][0], capture["K2 A"][0][1]
+        a_args = [torch.stack([c[0][i] for c in capture["K2 A"]]) for i in range(len(a_args))]
+        Nc, Ns = a_args[0].shape[1], a_args[4].shape[1]
+        assoc = lambda: torch.func.vmap(
+            lambda *a: gn_odometry.associate_and_solve(*a, **a_kw))(*a_args)
+        valid = assoc()
+        cost = [k2a_cost(odo, Nc, Ns, int(valid[2][b]), int(valid[3][b])) for b in range(H_SEQ)]
+        rows["K2 A"] = _h_kernel(
+            torch, "K2 A", assoc,
+            lambda b: gn_odometry.associate_and_solve(*(a[b] for a in a_args), **a_kw),
+            lambda: [gn_odometry.associate_and_solve_plain(*(a[b] for a in a_args), **a_kw)
+                     for b in range(H_SEQ)],
+            pose_equal("K2 A"), H_SEQ, tuple(map(sum, zip(*cost))))
+
+        b_args, b_kw = capture["K2 B"][0][0], capture["K2 B"][0][1]
+        b_args = [torch.stack([c[0][i] for c in capture["K2 B"]]) for i in range(len(b_args))]
+        Nc, Ns = b_args[2].shape[1], b_args[6].shape[1]
+        cost = [k2b_cost(b_kw["gn_iterations"], Nc, Ns, int(b_args[5][b].sum()),
+                         int(b_args[9][b].sum())) for b in range(H_SEQ)]
+        rows["K2 B"] = _h_kernel(
+            torch, "K2 B", lambda: torch.func.vmap(
+                lambda *a: gn_odometry.gn_solve_prepared(*a, **b_kw))(*b_args),
+            lambda b: gn_odometry.gn_solve_prepared(*(a[b] for a in b_args), **b_kw),
+            lambda: [gn_odometry.gn_solve_prepared_plain(*(a[b] for a in b_args), **b_kw)
+                     for b in range(H_SEQ)],
+            pose_equal("K2 B"), H_SEQ, tuple(map(sum, zip(*cost))))
+        clusters = {}
+        for key, (nc, ns, prep) in (("K2 A", (a_args[0].shape[1], a_args[4].shape[1], False)),
+                                    ("K2 B", (Nc, Ns, True))):
+            clusters[key] = (gn_odometry.cluster_size(nc, ns, prep),
+                             gn_odometry.max_active_clusters(nc, ns, prep))
+            log(f"(h) {key}: clusters of {clusters[key][0]} blocks, "
+                f"cudaOccupancyMaxActiveClusters {clusters[key][1]}: a batch of {H_SEQ} runs "
+                f"in {-(-H_SEQ // clusters[key][1])} wave(s)")
+    stats = {"sequences": H_SEQ, "frames": H_FRAMES, "ms_per_batched_frame": ms_batched,
+             "loop_ms_per_frame": loop_ms, "peak_bytes": peak, "base_bytes": base,
+             "odometry_diff": (dq_o, dt_o), "mapped_diff": (dq_m, dt_m),
+             "clusters": clusters, "profiled": profiled}
+    launches = {"K1": H_FRAMES, "K2 A": H_FRAMES - 1,
+                "K2 B": cfg.mapping.outer_iterations * H_FRAMES}
+    for key, row in rows.items():
+        row["launches"] = launches[key]
+    return stats, rows
+
+
 def main() -> int:
     import torch
 
@@ -1718,6 +2080,12 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     log(f"(g3) {json.dumps(g3)}")
     log(f"phase wall: (g3) map clouds and voxel filter {time.perf_counter() - t_phase:.1f} s; "
         f"(g) {time.perf_counter() - t_g:.1f} s")
+
+    # ---- (h) the batched multi-sequence front end over the main path's frames
+    t_phase = time.perf_counter()
+    h_stats, h_rows = multiseq_phase(torch, dev, cfg, dev_scans)
+    log(f"(h) {json.dumps(h_stats)}")
+    log(f"phase wall: (h) batched multi-sequence front end {time.perf_counter() - t_phase:.1f} s")
     log(f"script wall: {time.perf_counter() - t_script:.1f} s")
 
     gn_src = "scaloam_tpu_torch/csrc/gn_odometry.cu"
@@ -1742,6 +2110,14 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
                 for name in g1},
             "launches_g2": g2["launches"][key]})
+    for key, m in meta.items():
+        row = h_rows[key]
+        kernels.append({
+            "name": f"{m['name']} batched (B={H_SEQ})", "route": "cuda", "source": m["source"],
+            "replaces": m["replaces"], "launches": row["launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "single_ms": row["single_ms"], "bit_equal_per_problem": True})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -40,6 +40,16 @@ def pose_from_numpy(tree, device) -> Pose:
     return _leaves(Pose, tree, device)
 
 
+def _initialized(v, device):
+    """The reference's device flag(s) as the port's: a host bool where
+    every flag agrees (one state, or a batch started together), else a
+    bool tensor, one flag a sequence."""
+    flags = np.asarray(v, dtype=bool)
+    if flags.size and bool((flags == flags.flat[0]).all()):
+        return bool(flags.flat[0])
+    return torch.as_tensor(flags).to(device)
+
+
 def odometry_state_from_numpy(tree, device) -> OdometryState:
     return _leaves(
         OdometryState, tree, device,
@@ -47,7 +57,7 @@ def odometry_state_from_numpy(tree, device) -> OdometryState:
         last_surf=lambda t: _leaves(FeatureCloud, t, device),
         rel=lambda t: pose_from_numpy(t, device),
         world=lambda t: pose_from_numpy(t, device),
-        initialized=lambda v: bool(np.asarray(v)),
+        initialized=lambda v: _initialized(v, device),
     )
 
 
@@ -59,6 +69,15 @@ def mapping_state_from_numpy(tree, device) -> MappingState:
         correction=lambda t: pose_from_numpy(t, device),
         pose=lambda t: pose_from_numpy(t, device),
     )
+
+
+def multiseq_states_from_numpy(o_tree, m_tree, device):
+    """The reference multiseq's stacked states (every leaf with a leading
+    n_seq axis, as scaloam_tpu.parallel.multiseq.init_states and
+    frame_batch give them) as the port's stacked (odometry, mapping)
+    states; `initialized` becomes a host bool where every sequence's flag
+    agrees, else a bool tensor [n_seq]."""
+    return odometry_state_from_numpy(o_tree, device), mapping_state_from_numpy(m_tree, device)
 
 
 def gate_state_from_numpy(tree, device) -> GateState:

@@ -1,7 +1,8 @@
-// Gauss-Newton pose solves on one thread-block cluster: a shared GN core over
-// prepared point-to-line and point-to-plane factors, and two entry points.
+// Gauss-Newton pose solves, one thread-block cluster a problem: a shared GN
+// core over prepared point-to-line and point-to-plane factors, and two entry
+// points, each over a batch of problems.
 //
-// Entry A, scaloam_gn_odometry, replaces the TPU kernel
+// Entry A, scaloam_gn_odometry_batched, replaces the TPU kernel
 // scaloam_tpu/ops/pallas/gn_odometry.py:associate_and_solve (body
 // _make_kernel): per outer pass, re-rank the two cached candidates of every
 // class at the current pose (gate d^2 < thr), prepare the factors (the edge
@@ -9,7 +10,7 @@
 // pass), then run gn_iters GN iterations with the correspondences frozen.
 // Returns the pose and the valid counts of the last pass.
 //
-// Entry B, scaloam_gn_solve_prepared, replaces the scan-to-map GN loop of
+// Entry B, scaloam_gn_solve_prepared_batched, replaces the scan-to-map GN loop of
 // scaloam_tpu/models/mapping.py:187 (scaloam_tpu/ops/gn.py:gauss_newton over
 // residuals.edge_factors_from_prep and plane_norm_factors_T): the GN core
 // alone over factors the caller prepared.
@@ -26,10 +27,16 @@
 // ~270 KB (entry B, 2048 + 6656 factors) read once and a few MFLOP: well
 // under 1 us either way. What limits it is latency: gn_iters dependent
 // reductions per pass, each followed by a scalar 6x6 solve. Design:
-//  - One cluster of C <= 8 blocks (the host picks C from the point counts:
-//    about one point per thread, and enough blocks for each slice to fit in
-//    shared memory); each block owns a contiguous slice of the corner and of
-//    the surf points.
+//  - One cluster of C <= 8 blocks per problem (the host picks C from the
+//    point counts: about one point per thread, and enough blocks for each
+//    slice to fit in shared memory); each block owns a contiguous slice of
+//    the corner and of the surf points. A batch of B problems (the Pallas
+//    kernel under jax.vmap: a leading grid axis) is one launch of B
+//    clusters, gridDim = B * C, cluster i solving problem i at a per-problem
+//    stride into every array; C is the same for the whole batch (the
+//    capacities are static), and clusters past what the card holds at once
+//    (scaloam_gn_max_active_clusters) run in waves. A problem's result does
+//    not depend on the batch around it.
 //  - Inputs are staged into shared memory once per launch by bulk
 //    asynchronous copies (cp.async.bulk global->shared, completing on an
 //    mbarrier); the GN iterations touch no global memory. Each thread owns a
@@ -506,6 +513,13 @@ __global__ void __launch_bounds__(kThreads) assoc_solve_kernel(
   const cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
+  // This cluster's problem of the batch: every array advances by one
+  // problem's extent.
+  const size_t prob = blockIdx.x / C;
+  c_xyz += prob * Nc * 3; c_any += prob * Nc * 6; c_oth += prob * Nc * 6; c_mask += prob * Nc;
+  s_xyz += prob * Ns * 3; s_any += prob * Ns * 6; s_same += prob * Ns * 6;
+  s_oth += prob * Ns * 6; s_mask += prob * Ns;
+  q0 += prob * 4; t0 += prob * 3; q_out += prob * 4; t_out += prob * 3; counts_out += prob * 2;
   const Slice cs(Nc, C, rank), ss(Ns, C, rank);
   const LayoutA L(chunk_of(Nc, C), chunk_of(Ns, C));
 
@@ -599,6 +613,10 @@ __global__ void __launch_bounds__(kThreads) prepared_solve_kernel(
   const cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
+  const size_t prob = blockIdx.x / C;  // as in assoc_solve_kernel
+  c_p += prob * Nc * 3; c_a += prob * Nc * 3; c_b += prob * Nc * 3; c_v += prob * Nc;
+  s_p += prob * Ns * 3; s_n += prob * Ns * 3; s_d += prob * Ns; s_v += prob * Ns;
+  q0 += prob * 4; t0 += prob * 3; q_out += prob * 4; t_out += prob * 3;
   const Slice cs(Nc, C, rank), ss(Ns, C, rank);
   const LayoutB L(chunk_of(Nc, C), chunk_of(Ns, C));
 
@@ -646,33 +664,75 @@ int cluster_size(bool prepared, int Nc, int Ns) {
   return -1;
 }
 
-template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), int* smem_limit, int C, size_t smem,
-                   void* stream, Args... args) {
-  // Raise the kernel's dynamic shared-memory limit once per size (not on
-  // every call, so launches can also be captured into a CUDA graph). Set it
-  // even below 48 KB: static plus dynamic above 48 KB needs it too.
-  if (static_cast<int>(smem) > *smem_limit) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    *smem_limit = static_cast<int>(smem);
+// The cluster launch of one kernel at one point count: C blocks a cluster
+// and its dynamic shared memory; C < 0 if the points do not fit.
+template <typename... Params>
+struct ClusterLaunch {
+  void (*kernel)(Params...);
+  int C;
+  size_t smem;
+
+  ClusterLaunch(void (*k)(Params...), bool prepared, int Nc, int Ns, int* smem_limit)
+      : kernel(k), C(cluster_size(prepared, Nc, Ns)),
+        smem(C > 0 ? smem_bytes(prepared, Nc, Ns, C) : 0) {
+    // Raise the kernel's dynamic shared-memory limit once per size (not on
+    // every call, so launches can also be captured into a CUDA graph). Set
+    // it even below 48 KB: static plus dynamic above 48 KB needs it too.
+    if (C > 0 && static_cast<int>(smem) > *smem_limit) {
+      if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem)) != cudaSuccess) {
+        C = -1;
+        return;
+      }
+      *smem_limit = static_cast<int>(smem);
+    }
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+
+  // gridDim = n_problems * C: cluster i solves problem i.
+  cudaLaunchConfig_t config(int n_problems, void* stream, cudaLaunchAttribute* attr) const {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_problems * C, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+  }
+
+  template <typename... Args>
+  int launch(int n_problems, void* stream, Args... args) const {
+    if (C < 0 || n_problems < 1) return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config(n_problems, stream, attr);
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  // Clusters of this shape the card holds at once; -error on failure.
+  int max_active() const {
+    if (C < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config(1, nullptr, attr);
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+  }
+};
+
+int smem_limit_a = 0, smem_limit_b = 0;  // the kernels' raised limits
+
+auto launch_a(int Nc, int Ns) {
+  return ClusterLaunch(assoc_solve_kernel, false, Nc, Ns, &smem_limit_a);
+}
+
+auto launch_b(int Nc, int Ns) {
+  return ClusterLaunch(prepared_solve_kernel, true, Nc, Ns, &smem_limit_b);
 }
 
 }  // namespace
@@ -682,17 +742,23 @@ extern "C" int scaloam_gn_cluster_size(int prepared, int Nc, int Ns) {
   return cluster_size(prepared != 0, Nc, Ns);
 }
 
-extern "C" int scaloam_gn_odometry(
-    const void* c_xyz, const void* c_any, const void* c_oth, const void* c_mask, int Nc,
+// Clusters of entry A (prepared = 0) or B (prepared = 1) at these point
+// counts that the card holds at once (cudaOccupancyMaxActiveClusters); a
+// batch of more problems runs in waves. -error on failure.
+extern "C" int scaloam_gn_max_active_clusters(int prepared, int Nc, int Ns) {
+  return prepared ? launch_b(Nc, Ns).max_active() : launch_a(Nc, Ns).max_active();
+}
+
+// Entry A over B problems, each array holding B problems back to back
+// (c_xyz [B, Nc, 3], ..., q0 [B, 4], counts [B, 2]): B clusters, one launch.
+extern "C" int scaloam_gn_odometry_batched(
+    int B, const void* c_xyz, const void* c_any, const void* c_oth, const void* c_mask, int Nc,
     const void* s_xyz, const void* s_any, const void* s_same, const void* s_oth,
     const void* s_mask, int Ns, const void* q0, const void* t0, int outer,
     int gn_iters, float thr, float delta, float delta_sq, float damping,
     void* q_out, void* t_out, void* counts, void* stream) {
-  static int smem_limit = 0;
-  const int C = cluster_size(false, Nc, Ns);
-  if (C < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster(
-      assoc_solve_kernel, &smem_limit, C, smem_bytes(false, Nc, Ns, C), stream,
+  return launch_a(Nc, Ns).launch(
+      B, stream,
       static_cast<const float*>(c_xyz), static_cast<const float*>(c_any),
       static_cast<const float*>(c_oth), static_cast<const uint8_t*>(c_mask), Nc,
       static_cast<const float*>(s_xyz), static_cast<const float*>(s_any),
@@ -702,16 +768,14 @@ extern "C" int scaloam_gn_odometry(
       static_cast<float*>(q_out), static_cast<float*>(t_out), static_cast<int*>(counts));
 }
 
-extern "C" int scaloam_gn_solve_prepared(
-    const void* c_p, const void* c_a, const void* c_b, const void* c_v, int Nc,
+// Entry B over B problems laid out as in scaloam_gn_odometry_batched.
+extern "C" int scaloam_gn_solve_prepared_batched(
+    int B, const void* c_p, const void* c_a, const void* c_b, const void* c_v, int Nc,
     const void* s_p, const void* s_n, const void* s_d, const void* s_v, int Ns,
     const void* q0, const void* t0, int gn_iters, float delta, float delta_sq,
     float damping, void* q_out, void* t_out, void* stream) {
-  static int smem_limit = 0;
-  const int C = cluster_size(true, Nc, Ns);
-  if (C < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster(
-      prepared_solve_kernel, &smem_limit, C, smem_bytes(true, Nc, Ns, C), stream,
+  return launch_b(Nc, Ns).launch(
+      B, stream,
       static_cast<const float*>(c_p), static_cast<const float*>(c_a),
       static_cast<const float*>(c_b), static_cast<const uint8_t*>(c_v), Nc,
       static_cast<const float*>(s_p), static_cast<const float*>(s_n),

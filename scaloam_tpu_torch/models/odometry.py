@@ -7,16 +7,18 @@ iterations; the world pose integrates the frame-to-frame estimate and the
 current less-sharp / less-flat clouds become the next frame's targets.
 
 The reference's `lax.cond` on `initialized` is a branch on a host bool kept
-in the state. With `distortion=True` (the reference's DISTORTION mode, off
-in every preset) each point is de-skewed by the slerp-interpolated pose at
-its sweep fraction: K2 is gated off as the reference gates its kernel off,
+in the state; a device bool (a batch of sequences whose flags differ) runs
+the solve and selects, as the reference's cond does under `jax.vmap`.
+With `distortion=True` (the reference's DISTORTION mode, off in every
+preset) each point is de-skewed by the slerp-interpolated pose at its
+sweep fraction: K2 is gated off as the reference gates its kernel off,
 the re-rank and the per-iteration slerp factors run as plain PyTorch, and
 the republished clouds are moved to the sweep's end (TransformToEnd).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
@@ -32,7 +34,10 @@ class OdometryState(NamedTuple):
     last_surf: FeatureCloud  # previous less-flat
     rel: Pose  # frame-to-frame estimate (warm start)
     world: Pose  # accumulated odometry ("/laser_odom_to_init")
-    initialized: bool  # host-side, so the first-frame branch needs no device read
+    # A host bool, so the first-frame branch needs no device read; or a
+    # device bool (one per sequence of a batch whose flags differ), as in
+    # the reference, and then the solve runs and a select takes its result.
+    initialized: Union[bool, torch.Tensor]
     frame_idx: torch.Tensor  # int32
     feat_overflow: torch.Tensor  # int32 running max of ScanFeatures.overflow
     degenerate_count: torch.Tensor  # int32 frames below min_correspondences
@@ -183,11 +188,13 @@ def odometry_step(state: OdometryState, feats: ScanFeatures, cfg: SlamConfig):
     ocfg = cfg.odometry
     dev = feats.sharp.xyz.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    if state.initialized and ocfg.distortion:
+    flag = state.initialized
+    solve = flag if isinstance(flag, bool) else True  # a device flag: solve, then select
+    if solve and ocfg.distortion:
         corner_cand, surf_cand = _sweep_candidates(state.rel, feats, state, cfg)
         rel, n_c, n_s = _deskew_solve(state.rel, feats, corner_cand, surf_cand, ocfg)
         degenerate = (n_c + n_s) < ocfg.min_correspondences
-    elif state.initialized:
+    elif solve:
         corner_cand, surf_cand = _sweep_candidates(state.rel, feats, state, cfg)
         q, t, n_c, n_s = gn_odometry.associate_and_solve(
             feats.sharp.xyz, corner_cand[0], corner_cand[1], feats.sharp.mask,
@@ -204,6 +211,14 @@ def odometry_step(state: OdometryState, feats: ScanFeatures, cfg: SlamConfig):
         rel = Pose.identity(dev)
         n_c = n_s = zero
         degenerate = torch.zeros((), dtype=torch.bool, device=dev)
+    if not isinstance(flag, bool):
+        # The reference's lax.cond on the flag as jax.vmap runs it: both
+        # branches, the skip branch's identity selected where not initialized.
+        ident = Pose.identity(dev)
+        rel = Pose(torch.where(flag, rel.quat, ident.quat),
+                   torch.where(flag, rel.trans, ident.trans))
+        n_c, n_s = torch.where(flag, n_c, zero), torch.where(flag, n_s, zero)
+        degenerate = flag & degenerate
 
     world = se3.compose(state.world, rel)
     less_sharp, less_flat = feats.less_sharp, feats.less_flat

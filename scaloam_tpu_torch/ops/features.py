@@ -165,9 +165,11 @@ def build_range_image(xyz, ring, valid, n_scans: int, width: int, rel_scalars) -
     xs = xyz[order]
     rel_s = _relative_time_at(xs[:, 0], xs[:, 1], idx_s, *rel_scalars)
 
-    bounds = torch.searchsorted(
-        ring_s, torch.arange(n_scans + 1, dtype=torch.int32, device=dev)
-    )
+    # Each ring's start in the sorted stream: the count of keys below it (a
+    # left searchsorted; counted, since under vmap searchsorted copies its
+    # unbatched values).
+    rings = torch.arange(n_scans + 1, dtype=torch.int32, device=dev)
+    bounds = torch.sum(ring_s[None, :] < rings[:, None], dim=1)
     counts = torch.clamp(bounds[1:] - bounds[:-1], max=width).to(torch.int32)
 
     packed = torch.cat([xs, rel_s[:, None]], dim=1)  # [n, 4]

@@ -87,8 +87,7 @@ def insert(grid: GridMap, xyz: torch.Tensor, mask: torch.Tensor,
     newseg = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), idx_s[1:] != idx_s[:-1]])
     iota = torch.arange(N, device=dev)
     seg_start = torch.cummax(torch.where(newseg, iota, 0), dim=0).values
-    rank = torch.empty(N, dtype=torch.int64, device=dev)
-    rank[order] = iota - seg_start
+    rank = torch.zeros(N, dtype=torch.int64, device=dev).scatter(0, order, iota - seg_start)
 
     pos = base + rank
     ok = want & (pos < K)

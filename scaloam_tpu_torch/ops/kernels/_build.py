@@ -112,3 +112,16 @@ def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def fold(t: torch.Tensor, dim, batch: int) -> torch.Tensor:
+    """A custom op's argument under vmap, batch dimension `dim` (None: not
+    batched, so expanded), as [batch * n, ...] rows: the vmap batch merged
+    with the op's own leading axis n, contiguous."""
+    t = t.movedim(dim, 0) if dim is not None else t.expand(batch, *t.shape)
+    return t.reshape(batch * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def unfold(t: torch.Tensor, batch: int) -> torch.Tensor:
+    """fold's inverse on an output: [batch * n, ...] -> [batch, n, ...]."""
+    return t.reshape(batch, t.shape[0] // batch, *t.shape[1:])

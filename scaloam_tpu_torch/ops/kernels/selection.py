@@ -4,16 +4,20 @@ Replaces the TPU kernel scaloam_tpu/ops/pallas/selection.py:select_features.
 The kernel is csrc/selection.cu (one thread block per ring row, the row in
 shared memory; each subregion's candidates sorted once, then one warp walks
 the sorted lists with ballots); what bounds it on the card and what its
-design does about that is noted there. `select_features` launches it for
-CUDA tensors and takes `select_features_plain`, a literal PyTorch
-transcription of the Pallas kernel body, for CPU tensors.
+design does about that is noted there. `select_features` calls the
+custom op `scaloam::select_features`, which launches the kernel for CUDA
+tensors and runs `select_features_plain`, a literal PyTorch transcription
+of the Pallas kernel body, for CPU tensors. The op's vmap rule folds a
+batch of frames into rows, so a batch of B frames is one launch over
+B x S rows, as the Pallas kernel under jax.vmap is one call with a
+leading grid axis.
 """
 
-from __future__ import annotations
-
 import ctypes
+from typing import Tuple
 
 import torch
+from torch import Tensor
 
 from scaloam_tpu_torch.ops.kernels import _build
 
@@ -29,12 +33,27 @@ def select_features(curv, left_ext, right_ext, eligible, sp, ep, n_sub: int,
     """curv f32 [S, W], left/right_ext int32 [S, W], eligible bool [S, W],
     sp/ep int32 [S, n_sub]. Returns (corner_idx int32 [S, n_sub, n_corner],
     corner_ok bool, flat_idx int32 [S, n_sub, n_flat], flat_ok bool,
-    labels bool [S, W])."""
-    if curv.device.type == "cpu":
-        return select_features_plain(curv, left_ext, right_ext, eligible, sp,
-                                     ep, n_sub, n_corner, n_flat, curv_thr)
-    if curv.device.type != "cuda":
-        raise ValueError(f"select_features: unsupported device {curv.device}")
+    labels bool [S, W]). Under torch.func.vmap the batch folds into the
+    rows: one launch for [B, S, W]."""
+    return tuple(_select_op(curv, left_ext, right_ext, eligible, sp, ep, n_sub,
+                            n_corner, n_flat, float(curv_thr)))
+
+
+select_features.launches = 0
+_SELECT = select_features  # keeps the count while a caller swaps the module's name
+
+
+@torch.library.custom_op("scaloam::select_features", mutates_args=(), device_types="cpu")
+def _select_op(curv: Tensor, left_ext: Tensor, right_ext: Tensor, eligible: Tensor,
+               sp: Tensor, ep: Tensor, n_sub: int, n_corner: int, n_flat: int,
+               curv_thr: float) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return select_features_plain(curv, left_ext, right_ext, eligible, sp, ep,
+                                 n_sub, n_corner, n_flat, curv_thr)
+
+
+@_select_op.register_kernel("cuda")
+def _select_cuda(curv, left_ext, right_ext, eligible, sp, ep, n_sub, n_corner, n_flat,
+                 curv_thr):
     S, W = curv.shape
     dev = curv.device
     _build.check(curv, "curv", torch.float32, (S, W), dev)
@@ -71,11 +90,19 @@ def select_features(curv, left_ext, right_ext, eligible, sp, ep, n_sub: int,
     )
     if err:
         raise RuntimeError(f"select_features: CUDA launch failed with error {err}")
-    select_features.launches += 1
+    _SELECT.launches += 1
     return ci, co, fi, fo, labels
 
 
-select_features.launches = 0
+@_select_op.register_vmap
+def _select_vmap(info, in_dims, curv, left_ext, right_ext, eligible, sp, ep, n_sub,
+                 n_corner, n_flat, curv_thr):
+    """Rows are independent (one block each): [B, S, ...] folds into
+    [B * S, ...] rows of one call."""
+    rows = [_build.fold(t, d, info.batch_size)
+            for t, d in zip((curv, left_ext, right_ext, eligible, sp, ep), in_dims)]
+    outs = _select_op(*rows, n_sub, n_corner, n_flat, curv_thr)
+    return tuple(_build.unfold(o, info.batch_size) for o in outs), (0,) * len(outs)
 
 
 def select_features_plain(curv, left_ext, right_ext, eligible, sp, ep,

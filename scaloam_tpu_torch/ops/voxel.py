@@ -256,7 +256,7 @@ def argmin_topk(d: torch.Tensor, k: int, payload: Optional[torch.Tensor] = None)
     """Ascending top-k of d [Q, M] by k iterated argmins (ties to the lowest
     index; an exhausted row repeats index 0 like the reference). payload
     [Q, M, C] rows ride along. Returns (vals [Q, k], rows [Q, k, C] or None)."""
-    dd = d.clone()
+    dd = d
     vals, rows = [], []
     for _ in range(k):
         j = torch.argmin(dd, dim=1, keepdim=True)
@@ -264,7 +264,7 @@ def argmin_topk(d: torch.Tensor, k: int, payload: Optional[torch.Tensor] = None)
         if payload is not None:
             C = payload.shape[2]
             rows.append(torch.gather(payload, 1, j[:, :, None].expand(-1, 1, C))[:, 0])
-        dd.scatter_(1, j, BIG)
+        dd = dd.scatter(1, j, BIG)  # out of place: vmap batches it
     return (
         torch.stack(vals, dim=1),
         torch.stack(rows, dim=1) if payload is not None else None,
@@ -287,11 +287,11 @@ def sq_dist(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def tile_top2(d: torch.Tensor, base: int):
-    """Smallest two entries per row of d [Q, tile] (consumed in place) by
-    double argmin. Returns (d1, i1, d2, i2) with indices offset by base."""
+    """Smallest two entries per row of d [Q, tile] by double argmin.
+    Returns (d1, i1, d2, i2) with indices offset by base."""
     j1 = torch.argmin(d, dim=1, keepdim=True)
     v1 = torch.gather(d, 1, j1)[:, 0]
-    d.scatter_(1, j1, BIG)
+    d = d.scatter(1, j1, BIG)  # out of place: vmap batches it
     j2 = torch.argmin(d, dim=1, keepdim=True)
     v2 = torch.gather(d, 1, j2)[:, 0]
     return v1, base + j1[:, 0], v2, base + j2[:, 0]

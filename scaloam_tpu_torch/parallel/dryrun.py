@@ -82,7 +82,8 @@ def dryrun(device, cfg: SlamConfig = None) -> dict:
     if not bool(torch.isfinite(out.poses.trans).all()):
         raise RuntimeError("dryrun: non-finite pose-graph poses")
 
-    # the multi-sequence front end over the sequence axis
+    # the multi-sequence front end over the sequence axis: this rank's rows
+    # of the stacked states, one vmapped step a frame
     cfg = small_config() if cfg is None else cfg
     o_states, m_states = multiseq.shard_states(multiseq.init_states(n_seq, cfg, device), mesh)
     npts = cfg.sensor.max_points

@@ -9,7 +9,11 @@ conftest.py imports JAX; skip it there):
 Tolerances: K1 exact; K2 (both entries) equal counts, quaternion within
 2e-4 and translation within 2e-3 (same math, float32 sums in another
 order); the front end on the card vs on the CPU within 5e-4 / 5e-3 m per
-frame.
+frame. The batched entries (each kernel under torch.func.vmap, one launch
+for all problems) equal a launch a problem bit for bit, since every
+problem runs the same code in its own blocks or cluster, and meet the
+same tolerances against the plain version; multiseq.frame_batch on the
+card launches each kernel once a batched frame.
 """
 
 import dataclasses
@@ -220,3 +224,112 @@ def test_gn_cluster_size_is_portable_at_main_path_sizes(dev):
     assert 1 <= odo <= 8 and 1 <= mapping <= 8
     with pytest.raises(ValueError):  # too many points for 8 blocks' shared memory
         gn_odometry.cluster_size(40000, 40000, prepared=True)
+
+
+# ---------------------------------------------------------------------------
+# the batched entries: torch.func.vmap over problems, one launch a call
+# ---------------------------------------------------------------------------
+
+
+def _stack(problems):
+    return [torch.stack(a) for a in zip(*problems)]
+
+
+def test_batched_selection_matches_per_problem_and_plain(dev):
+    """Three frames in one launch over 3 x 64 rows: bit-equal to a launch a
+    frame and to the plain version."""
+    args = _stack([_tie_inputs(dev, seed=s, bounds=b)
+                   for s, b in ((0, "split"), (1, "overlap"), (2, "empty"))])
+    before = selection.select_features.launches
+    got = torch.func.vmap(lambda *a: selection.select_features(*a, **SEL_KW))(*args)
+    torch.cuda.synchronize()
+    assert selection.select_features.launches == before + 1
+    for b in range(3):
+        one = selection.select_features(*(a[b] for a in args), **SEL_KW)
+        plain = selection.select_features_plain(*(a[b] for a in args), **SEL_KW)
+        for g, o, p in zip(got, one, plain):
+            assert torch.equal(g[b], o) and torch.equal(g[b], p)
+
+
+def test_batched_gn_kernel_matches_per_problem_and_plain(dev):
+    """Entry A over three problems, the initial pose shared (not batched):
+    one launch of three clusters, each bit-equal to its own launch and
+    within the K2 tolerances of the plain version."""
+    arrs = _stack([_scenario(dev, s) for s in (0, 3, 5)])
+    q0 = torch.tensor([1.0, 0, 0, 0], device=dev)
+    t0 = torch.tensor([0.5, -0.25, 1.0], device=dev)
+    before = gn_odometry.associate_and_solve.launches
+    got = torch.func.vmap(lambda *a: gn_odometry.associate_and_solve(*a, **K2_KW),
+                          in_dims=(0,) * 9 + (None, None))(*arrs, q0, t0)
+    torch.cuda.synchronize()
+    assert gn_odometry.associate_and_solve.launches == before + 1
+    for b in range(3):
+        one = gn_odometry.associate_and_solve(*(a[b] for a in arrs), q0, t0, **K2_KW)
+        for g, o in zip(got, one):
+            assert torch.equal(g[b], o)
+        wq, wt, wn_c, wn_s = gn_odometry.associate_and_solve_plain(
+            *(a[b] for a in arrs), q0, t0, **K2_KW)
+        q, t = got[0][b], got[1][b]
+        assert (int(got[2][b]), int(got[3][b])) == (int(wn_c), int(wn_s))
+        if torch.dot(q, wq) < 0:
+            q = -q
+        assert float((q - wq).abs().max()) <= 2e-4
+        assert float((t - wt).abs().max()) <= 2e-3
+
+
+def test_batched_gn_prepared_matches_per_problem_and_plain(dev):
+    """Entry B over three problems (one all-invalid) from three poses: one
+    launch, each problem bit-equal to its own launch, within the K2
+    tolerances of the plain version."""
+    arrs = _stack([_prepared(dev, s, frac_valid=f) for s, f in ((0, 0.8), (4, 0.8), (1, 0.0))])
+    q0 = torch.tensor([[1.0, 0, 0, 0]] * 3, device=dev)
+    t0 = torch.tensor([[0.5, -0.25, 1.0], [0.0, 0.0, 0.0], [0.1, 0.2, 0.3]], device=dev)
+    kw = dict(gn_iterations=4, huber_delta=0.1)
+    before = gn_odometry.gn_solve_prepared.launches
+    got = torch.func.vmap(lambda *a: gn_odometry.gn_solve_prepared(*a, **kw))(q0, t0, *arrs)
+    torch.cuda.synchronize()
+    assert gn_odometry.gn_solve_prepared.launches == before + 1
+    for b in range(3):
+        one = gn_odometry.gn_solve_prepared(q0[b], t0[b], *(a[b] for a in arrs), **kw)
+        assert torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1])
+        wq, wt = gn_odometry.gn_solve_prepared_plain(q0[b], t0[b], *(a[b] for a in arrs), **kw)
+        q = got[0][b] if torch.dot(got[0][b], wq) >= 0 else -got[0][b]
+        assert float((q - wq).abs().max()) <= 2e-4
+        assert float((got[1][b] - wt).abs().max()) <= 2e-3
+    assert float((got[1][2] - t0[2]).abs().max()) <= 1e-5  # all invalid: the pose holds
+
+
+def test_frame_batch_on_card_tracks_cpu_with_one_launch_each(dev):
+    """multiseq.frame_batch over two sequences on the card: one launch of
+    K1, K2 A (from the second frame) and outer_iterations of K2 B a
+    batched frame; poses within 5e-4 / 5e-3 m of the same batch on the
+    CPU."""
+    from scaloam_tpu_torch.parallel import multiseq
+
+    cfg = _config()
+    world = synthetic.make_world(seed=8)
+    seqs = [synthetic.simulate_trajectory(world, n_frames=2, speed=0.8 + 0.2 * s, radius=25.0,
+                                          n_azimuth=256, seed=3 + s)[0] for s in range(2)]
+    states = {d: multiseq.init_states(2, cfg, d) for d in (dev, "cpu")}
+    for f in range(2):
+        poses = {}
+        for d in (dev, "cpu"):
+            scans = [LidarScan.from_numpy(seqs[s][f], cfg.sensor.max_points, d) for s in range(2)]
+            counts = (selection.select_features.launches, gn_odometry.associate_and_solve.launches,
+                      gn_odometry.gn_solve_prepared.launches)
+            o, m, odom, mapped = multiseq.frame_batch(
+                *states[d], torch.stack([s.xyz for s in scans]),
+                torch.stack([s.mask for s in scans]), cfg)
+            states[d] = (o, m)
+            poses[str(d)] = (odom, mapped)
+            if d == dev:
+                torch.cuda.synchronize()
+                assert (selection.select_features.launches - counts[0],
+                        gn_odometry.associate_and_solve.launches - counts[1],
+                        gn_odometry.gn_solve_prepared.launches - counts[2]) == (
+                            1, int(f > 0), cfg.mapping.outer_iterations)
+        for a, b in zip(poses[str(dev)], poses["cpu"]):
+            qa = a.quat.cpu()
+            qa = torch.where((qa * b.quat).sum(-1, keepdim=True) < 0, -qa, qa)
+            assert float((qa - b.quat).abs().max()) <= 5e-4
+            assert float((a.trans.cpu() - b.trans).abs().max()) <= 5e-3

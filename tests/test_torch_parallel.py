@@ -16,7 +16,8 @@ once for the whole file and runs while the JAX side computes.
   one perturbed loop, GPS every third node: within 5e-3 m and
   |q.q'| >= 1 - 1e-4, tests/test_parallel.py's bounds), and the
   (seq 2, kf 2) dry run with finite poses.
-- W = 2: multiseq.frame_batch over 2 sequences x 2 frames at a reduced
+- W = 2: multiseq.frame_batch (one vmapped step over the stacked states,
+  sharded a sequence a rank) over 2 sequences x 2 frames at a reduced
   HDL-64 configuration, equal to the port's own one-sequence-at-a-time run
   and within 5e-4 / 5e-3 m of the reference's sequential stages (its
   selection kernel in interpret mode, as in tests/test_torch_frontend.py).
@@ -238,7 +239,7 @@ def _rank_world2(mesh):
             p = multiseq.gather_poses(p, mesh)
             out.append(torch.cat([p.quat, p.trans], dim=-1))
     return {"odom": torch.stack(odom), "mapped": torch.stack(mapped),
-            "refused": _mesh_refusals()}
+            "local": multiseq.num_sequences(o_states), "refused": _mesh_refusals()}
 
 
 def _rank_main(world: int, rank: int, store: str, out_dir: str) -> None:
@@ -429,6 +430,7 @@ def test_multiseq_equals_one_sequence_at_a_time(world2):
     want_o = torch.stack(want_o).reshape(N_SEQ, N_FRAMES, 7).transpose(0, 1)
     want_m = torch.stack(want_m).reshape(N_SEQ, N_FRAMES, 7).transpose(0, 1)
     for res in world2.results():
+        assert res["local"] == 1  # this rank's row of the stacked states
         assert torch.equal(res["odom"], want_o)
         assert torch.equal(res["mapped"], want_m)
     assert float(want_m[-1, :, 4:].abs().max()) > 0.5  # the drives moved
