@@ -7,9 +7,11 @@ Run from the repository root on a machine with one CUDA GPU:
 It builds the hand-written CUDA kernels from scaloam_tpu_torch/csrc with
 nvcc, holds each kernel entry against its plain PyTorch version on the
 card at the shapes of a full-width kitti_hdl64 frame (K1 selection; K2's
-odometry entry A and its prepared-factor entry B, which mapping calls),
-then drives the port's paths, each with the kernels' launch counts set
-to 0 just before it and read just after:
+odometry entry A and its prepared-factor entry B, which mapping calls;
+the 2-NN squared distances and atan2 of csrc/f32ops.cu, rounded as the
+reference's compiled CPU program rounds them, bit-equal to their plain
+versions), then drives the port's paths, each with the kernels' launch
+counts set to 0 just before it and read just after:
 
 - the front end (features -> odometry -> mapping -> keyframe gate)
   through `FrontEnd(kitti_hdl64(), device="cuda")` over 12 frames of a
@@ -77,18 +79,26 @@ to 0 just before it and read just after:
   an error; ms per batched frame at 1, 2, 4 and 8 sequences beside the
   loop's, the 8-sequence drive's peak memory; each batched kernel entry
   at 8 problems bit-equal to a launch a problem, held against its plain
-  version and timed in a CUDA graph beside 8 single launches.
+  version and timed in a CUDA graph beside 8 single launches;
+- (i) the outputs of the main path, (g1), (g2) and (a)'s first optimise
+  held against the JAX package's runs of the same configurations on the
+  same inputs (tests/data_torch_fullwidth_reference.npz, recorded on the
+  CPU by tools/torch_record_reference.py): input hashes equal, then per
+  drive the largest difference of each quantity within the I_*
+  tolerances below. No drive runs twice.
 
 The last three lines of standard output are the kernel table (JSON, with
-the launches of the system drive, and per kernel the (g1) rows and the
-(g2) launches, then a row for each batched entry at (h)'s 8 problems,
-with (h)'s launches), the card's name and power limit, and
+the launches of the system drive for K1 / K2 and of the main path for
+sq_dist / atan2, and per kernel the (g1) rows and the (g2) launches, then
+a row for each batched K1 / K2 entry at (h)'s 8 problems, with (h)'s
+launches), the card's name and power limit, and
 the device line (JSON). Any mismatch or error raises, so the exit code is
 non-zero. Without a GPU it exits non-zero and prints no result.
 """
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import multiprocessing
@@ -101,9 +111,12 @@ import warnings
 import numpy as np
 
 N_FRAMES = 12
+MAIN_COLS = 2048  # azimuth columns of the main path's HDL-64 scans
 WARM_FRAMES = 2  # excluded from the ms/frame window
 PREP_FRAME = 3  # frame whose mapping factors feed entry B's check (dense map)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+ROUNDING_KERNELS = ("sq_dist", "sum3_sq", "atan2")  # csrc/f32ops.cu
+ATAN2_OPS = 34  # float32 operations of glibc's atan2f an element (csrc/f32ops.cu)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 K2_QUAT_TOL = 2e-4  # f32 summation order differs from the plain version
 K2_TRANS_TOL = 2e-3
@@ -171,6 +184,25 @@ H_SEQ = 8
 H_FRAMES = 4
 H_BATCHES = (1, 2, 4, 8)
 H_Q_TOL, H_T_TOL = 5e-4, 5e-3
+# (i) the full-width runs held against the JAX package's runs of the same
+# configurations on the same inputs, recorded on the CPU by
+# tools/torch_record_reference.py: R1 the main path, R2 (g1)'s presets, R3
+# (g2)'s MulRan CLI, R4 (a)'s first optimise. Odometry and mapped poses
+# within the port's tolerances (tests/test_torch_frontend.py) on every
+# frame; the gate's fire and the degenerate flag equal; feature, overflow
+# and keyframe-cloud counts within max(1, 1 %); K1's picks equal, or a
+# curvature near-tie within I_TIE_ULPS float32 ulps; R3's keyframes and
+# GPS factors equal, its loops equal apart from a verification whose ICP
+# fitness lies within 1 % of the threshold in either run, its keyframe
+# positions and ATE within 5e-3 m; R4's positions within PGO_CPU_TOL_M.
+REFERENCE_NPZ = os.path.join("tests", "data_torch_fullwidth_reference.npz")
+I_Q_TOL, I_T_TOL = 5e-4, 5e-3
+I_COUNT_REL = 0.01
+I_TIE_ULPS = 4
+I_FIT_REL = 0.01
+I_KF_POS_TOL_M = 5e-3
+I_ATE_TOL_M = 5e-3
+I_PGO_TOL_M = PGO_CPU_TOL_M
 
 
 def log(*a):
@@ -250,11 +282,10 @@ def pose_err(torch, label, got, want, counts=None):
     return max(dq, dt)
 
 
-def _circle_frame(i, radius, step, n_scans, n_azimuth, lidar_type):
+def _circle_frame(synthetic, i, radius, step, n_scans, n_azimuth, lidar_type):
     """Frame i of a drive around a circle (simulate_trajectory's course,
-    `step` m a frame) through run.py's synthetic world: (points, pose)."""
-    from scaloam_tpu_torch.utils import synthetic
-
+    `step` m a frame) through run.py's synthetic world, made with the
+    given `synthetic` module: (points, pose)."""
     world = synthetic.make_world(seed=0, n_boxes=60, extent=70.0)
     theta = step * i / radius
     pos = np.array([radius * np.sin(theta), radius * (1 - np.cos(theta)), 1.8])
@@ -266,30 +297,45 @@ def _circle_frame(i, radius, step, n_scans, n_azimuth, lidar_type):
     return pts, T
 
 
+def _port_synthetic():
+    from scaloam_tpu_torch.utils import synthetic
+
+    return synthetic
+
+
 def _scan_job(i):
     """Frame i of run.py's synthetic drive (radius 22 m, 1 m a frame, 1024
     azimuths, HDL-64) and its ground-truth pose."""
-    return _circle_frame(i, 22.0, 1.0, 64, 1024, "HDL64")
+    return _circle_frame(_port_synthetic(), i, 22.0, 1.0, 64, 1024, "HDL64")
+
+
+def mulran_frame(synthetic, i):
+    """Frame i of (g2)'s OS1-64 course (G2_RADIUS_M, G2_STEP_M a frame,
+    2048 columns) and its ground-truth pose."""
+    return _circle_frame(synthetic, i, G2_RADIUS_M, G2_STEP_M, 64, 2048, "OS1-64")
 
 
 def _mulran_scan_job(i):
-    """Frame i of (g2)'s OS1-64 course (G2_RADIUS_M, G2_STEP_M a frame,
-    2048 columns) and its ground-truth pose."""
-    return _circle_frame(i, G2_RADIUS_M, G2_STEP_M, 64, 2048, "OS1-64")
+    return mulran_frame(_port_synthetic(), i)
+
+
+def preset_drive(synthetic, sensor, cols, n_frames=N_FRAMES):
+    """The main path's drive (and (g1)'s): frames at 1.2 m a frame around
+    a 40 m circle in world 3, with one sensor's beam ladder (`sensor` a
+    preset's SensorConfig) at `cols` columns; frame i is the same whatever
+    n_frames. Returns (scans, gt poses)."""
+    return synthetic.simulate_trajectory(
+        synthetic.make_world(seed=3, n_boxes=60, extent=70.0), n_frames=n_frames, speed=1.2,
+        radius=40.0, n_scans=sensor.n_scans, n_azimuth=cols, seed=7,
+        lidar_type=sensor.lidar_type)
 
 
 def _preset_drive_job(preset):
-    """(g1)'s drive for one (preset, columns): the main path's course and
-    world with the preset's beam ladder. Returns (scans, gt poses)."""
+    """(g1)'s drive for one (preset, columns)."""
     from scaloam_tpu_torch import config
-    from scaloam_tpu_torch.utils import synthetic
 
     name, cols = preset
-    sensor = config.PRESETS[name]().sensor
-    return synthetic.simulate_trajectory(
-        synthetic.make_world(seed=3, n_boxes=60, extent=70.0), n_frames=N_FRAMES, speed=1.2,
-        radius=40.0, n_scans=sensor.n_scans, n_azimuth=cols, seed=7,
-        lidar_type=sensor.lidar_type)
+    return preset_drive(_port_synthetic(), config.PRESETS[name]().sensor, cols)
 
 
 def _deskew_scans():
@@ -343,6 +389,229 @@ def ate_m(trans, gt) -> float:
     return float(np.sqrt(np.mean(np.sum((trans[: len(gt)] - gt) ** 2, axis=1))))
 
 
+def chain_pgo_cfg(pgo, n, n_loops):
+    """(a)'s pose-graph settings for a circle chain of n nodes and n_loops
+    loops, from either package's default PGOConfig `pgo`."""
+    return dataclasses.replace(pgo, max_keyframes=n, max_loops=n_loops, loop_variance=1e-3,
+                               cauchy_k=100.0)
+
+
+# ---- (i): the recording of the JAX package's runs and the comparisons
+
+def sha256_f32(a) -> str:
+    """sha256 of an array's float32 bytes in C order."""
+    return hashlib.sha256(np.ascontiguousarray(a, dtype=np.float32).tobytes()).hexdigest()
+
+
+def chain_sha256(odom_q, odom_t, loops) -> str:
+    """sha256 of a circle chain: odometry quaternions and translations
+    (float32) and loop pairs (int32)."""
+    h = hashlib.sha256(np.ascontiguousarray(odom_q, dtype=np.float32).tobytes())
+    h.update(np.ascontiguousarray(odom_t, dtype=np.float32).tobytes())
+    h.update(np.asarray(loops, dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
+def load_reference(path=REFERENCE_NPZ):
+    """(meta dict, {name: array}) of the recorded JAX runs. Raises when the
+    file is missing: no comparison is skipped."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    return json.loads(str(arrays.pop("meta"))), arrays
+
+
+def drive_arrays(arrays, drive):
+    """The arrays of one recorded drive ("R1", "R2.vlp16", "R3", "R4.1024"),
+    without the drive prefix."""
+    pre = drive + "."
+    return {k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)}
+
+
+def check_hashes(label, want, got):
+    """Raise naming the first frame whose input differs from the recorded one."""
+    want = [str(h) for h in want]
+    if len(want) != len(got):
+        raise AssertionError(f"(i) {label}: {len(got)} inputs, the recording has {len(want)}")
+    for i, (w, g) in enumerate(zip(want, got)):
+        if w != g:
+            raise AssertionError(f"(i) {label}: the input of frame {i} differs from the "
+                                 f"recorded one (sha256 {g} vs {w})")
+
+
+@contextlib.contextmanager
+def capture_frames():
+    """While active, keeps for each frame the port extracts features from
+    its ScanFeatures, K1's picks and the curvature they were made from
+    (references only: nothing is computed or read during the drive).
+    Yields the list of per-frame dicts."""
+    from scaloam_tpu_torch.ops import features
+    from scaloam_tpu_torch.ops.kernels import selection
+
+    frames = []
+    extract, select = features.extract_features, selection.select_features
+
+    def spy_select(curv, *a, **k):
+        out = select(curv, *a, **k)
+        frames.append({"curv": curv, "picks": out[:4]})
+        return out
+
+    def spy_extract(scan, cfg):
+        feats = extract(scan, cfg)
+        frames[-1]["feats"] = feats
+        return feats
+
+    features.extract_features, selection.select_features = spy_extract, spy_select
+    try:
+        yield frames
+    finally:
+        features.extract_features, selection.select_features = extract, select
+
+
+def frontend_record(outs, frames):
+    """A front-end drive in the recording's layout (numpy), from its
+    FrontendOutputs and capture_frames()'s frames, plus the curvature
+    ("curv" [F, S, W]) for the near-tie check."""
+    import torch
+
+    def stack(f, items=outs):
+        return torch.stack([f(o) for o in items]).cpu().numpy()
+
+    feats = [f["feats"] for f in frames]
+    counts = stack(lambda f: torch.stack(
+        [c.mask.sum() for c in (f.sharp, f.less_sharp, f.flat, f.less_flat)]), feats)
+    picks = [[p.cpu().numpy() for p in f["picks"]] for f in frames]
+    return {
+        "odom_q": stack(lambda o: o.odom_world.quat), "odom_t": stack(lambda o: o.odom_world.trans),
+        "map_q": stack(lambda o: o.mapped_pose.quat), "map_t": stack(lambda o: o.mapped_pose.trans),
+        "fire": stack(lambda o: o.fire), "degenerate": stack(lambda o: o.degenerate),
+        "kf_count": stack(lambda o: o.kf_mask.sum()).astype(np.int32),
+        "feat_counts": counts.astype(np.int32),
+        "overflow": stack(lambda f: f.overflow, feats).astype(np.int32),
+        "corner_idx": np.stack([p[0] for p in picks]).astype(np.int16),
+        "corner_ok": np.stack([p[1] for p in picks]).astype(bool),
+        "flat_idx": np.stack([p[2] for p in picks]).astype(np.int16),
+        "flat_ok": np.stack([p[3] for p in picks]).astype(bool),
+        "curv": torch.stack([f["curv"] for f in frames]).cpu().numpy(),
+    }
+
+
+def _quat_dist(q, qw):
+    """Per-row max |q - qw| with the quaternions' signs aligned."""
+    sign = np.where(np.sum(q * qw, axis=-1, keepdims=True) < 0, -1.0, 1.0)
+    return np.abs(q * sign - qw).max(axis=-1)
+
+
+def _count_off(got, want):
+    """Count departures past max(1, I_COUNT_REL of the recorded count)."""
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    return np.abs(got - want) > np.maximum(1, I_COUNT_REL * want)
+
+
+def compare_frontend(label, want, got):
+    """Hold a front-end drive (frontend_record's layout) against its
+    recording. Returns the largest difference of each quantity; raises past
+    the (i) tolerances, naming the frames."""
+    n = len(want["fire"])
+    if len(got["fire"]) != n:
+        raise AssertionError(f"(i) {label}: {len(got['fire'])} frames, recorded {n}")
+    row = {}
+    faults = []
+    for pose in ("odom", "map"):
+        dq = _quat_dist(got[pose + "_q"], want[pose + "_q"])
+        dt = np.abs(got[pose + "_t"] - want[pose + "_t"]).max(axis=-1)
+        row[pose + "_dq"], row[pose + "_dt_m"] = float(dq.max()), float(dt.max())
+        bad = np.nonzero((dq > I_Q_TOL) | (dt > I_T_TOL))[0]
+        if len(bad):
+            faults.append(f"{pose} pose past {I_Q_TOL} / {I_T_TOL} m at frames {bad.tolist()}")
+    for flag in ("fire", "degenerate"):
+        bad = np.nonzero(got[flag] != want[flag])[0]
+        row[flag + "_differ"] = len(bad)
+        if len(bad):
+            faults.append(f"{flag} differs at frames {bad.tolist()}")
+    for key in ("feat_counts", "overflow", "kf_count"):
+        diff = np.abs(got[key].astype(np.int64) - want[key].astype(np.int64))
+        row[key + "_max_diff"] = int(diff.max())
+        bad = np.nonzero(_count_off(got[key], want[key]).reshape(n, -1).any(axis=1))[0]
+        if len(bad):
+            faults.append(f"{key} past max(1, {I_COUNT_REL:.0%}) at frames {bad.tolist()}")
+    n_diff, worst = 0, 0.0
+    for kind in ("corner", "flat"):
+        wi, wo = want[kind + "_idx"].astype(np.int64), want[kind + "_ok"]
+        gi, go = got[kind + "_idx"].astype(np.int64), got[kind + "_ok"]
+        ok_diff = int((wo != go).sum())
+        if ok_diff:
+            faults.append(f"K1 {kind} picks: {ok_diff} ok flags differ")
+        d = wo & go & (wi != gi)
+        n_diff += ok_diff + int(d.sum())
+        if d.any():
+            f, r = np.nonzero(d)[:2]
+            cw = got["curv"][f, r, wi[d]].astype(np.float32)
+            cg = got["curv"][f, r, gi[d]].astype(np.float32)
+            ulps = np.abs(cw - cg) / np.spacing(np.maximum(np.abs(cw), np.abs(cg)))
+            worst = max(worst, float(ulps.max()))
+    row["k1_picks_differ"], row["k1_curv_gap_ulps"] = n_diff, worst
+    if worst > I_TIE_ULPS:
+        faults.append(f"K1: a differing pick is no curvature near-tie ({worst:.1f} ulps > "
+                      f"{I_TIE_ULPS})")
+    log(f"(i) {label}: {json.dumps(row)}")
+    if faults:
+        raise AssertionError(f"(i) {label}: " + "; ".join(faults))
+    return row
+
+
+def compare_mulran(want, got, threshold):
+    """Hold (g2)'s MulRan CLI run against R3. got: keyframes [K] frame
+    indices, verify [V, 2] pairs with verify_fitness [V] and
+    verify_accepted [V], loops [L, 2], gps_factors, optimized_poses
+    [K, 3, 4], ate_m. Returns the largest differences; raises past the (i)
+    tolerances."""
+    faults = []
+    row = {"keyframes_equal": bool(np.array_equal(got["keyframes"], want["keyframes"])),
+           "gps_factors": [int(got["gps_factors"]), int(want["gps_factors"])]}
+    if not row["keyframes_equal"]:
+        faults.append(f"keyframes differ: {got['keyframes'].tolist()} vs "
+                      f"{want['keyframes'].tolist()}")
+    if row["gps_factors"][0] != row["gps_factors"][1]:
+        faults.append(f"GPS factors {row['gps_factors']}")
+
+    def near_threshold(run, pair):
+        hit = np.all(run["verify"] == pair, axis=1)
+        fit = run["verify_fitness"][hit]
+        return bool(np.any(np.abs(fit - threshold) <= I_FIT_REL * threshold))
+
+    got_loops = {tuple(int(v) for v in p) for p in got["loops"]}
+    want_loops = {tuple(int(v) for v in p) for p in want["loops"]}
+    row["loops"] = [len(got_loops), len(want_loops)]
+    row["loops_differ"] = sorted(got_loops ^ want_loops)
+    for pair in row["loops_differ"]:
+        if near_threshold(got, pair) or near_threshold(want, pair):
+            log(f"(i) R3: loop {pair} differs, its ICP fitness within {I_FIT_REL:.0%} of "
+                f"{threshold} in one run")
+        else:
+            faults.append(f"loop {pair} in one run only")
+    if row["keyframes_equal"]:
+        d = np.abs(got["optimized_poses"][:, :, 3] - want["optimized_poses"][:, :, 3]).max()
+        row["kf_pos_max_diff_m"] = float(d)
+        if not d <= I_KF_POS_TOL_M:
+            faults.append(f"optimised keyframe positions {d:.3e} m > {I_KF_POS_TOL_M}")
+    row["ate_m"] = [float(got["ate_m"]), float(want["ate_m"])]
+    if not abs(row["ate_m"][0] - row["ate_m"][1]) <= I_ATE_TOL_M:
+        faults.append(f"ATE {row['ate_m']} m")
+    log(f"(i) R3: {json.dumps(row)}")
+    if faults:
+        raise AssertionError("(i) R3: " + "; ".join(faults))
+    return row
+
+
+def compare_pose_graph(n, want_trans, got_trans):
+    """R4: one optimise's positions against the recording."""
+    d = float(np.abs(np.asarray(got_trans) - want_trans).max())
+    log(f"(i) R4 {n} nodes: max |dt| {d:.3e} m (tol {I_PGO_TOL_M})")
+    if not d <= I_PGO_TOL_M:
+        raise AssertionError(f"(i) R4 {n} nodes: positions {d:.3e} m from the recording")
+    return d
+
+
 def count_launches(torch, fn):
     """(fn(), CUDA kernels fn launched), under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -355,20 +624,31 @@ def count_launches(torch, fn):
 
 def _launch_counts():
     """The kernels' launch counters, by kernel."""
-    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+    from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry, selection
 
     return {"K1": selection.select_features.launches,
             "K2 A": gn_odometry.associate_and_solve.launches,
-            "K2 B": gn_odometry.gn_solve_prepared.launches}
+            "K2 B": gn_odometry.gn_solve_prepared.launches,
+            **{name: getattr(f32ops, name).launches for name in ROUNDING_KERNELS}}
 
 
 def _zero_launches():
     """Set every kernel's launch counter to 0."""
-    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
+    from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry, selection
 
     for fn in (selection.select_features, gn_odometry.associate_and_solve,
-               gn_odometry.gn_solve_prepared):
+               gn_odometry.gn_solve_prepared,
+               *(getattr(f32ops, name) for name in ROUNDING_KERNELS)):
         fn.launches = 0
+
+
+def _check_launches(label, got, want, at_least=ROUNDING_KERNELS):
+    """K1 / K2 launched exactly as `want` says; the rounding kernels named
+    in `at_least` (their counts follow the clouds' tiling) at least once."""
+    k = {key: got[key] for key in want}
+    if k != want or min(got[key] for key in at_least) < 1:
+        raise AssertionError(f"{label}launches {got}, want {want} and every one of "
+                             f"{at_least} at least once")
 
 
 class SyncCounter:
@@ -440,7 +720,9 @@ class Stage:
 
 
 def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
-    """(a): optimise ticks on the circle chains; returns a row per tier."""
+    """(a): optimise ticks on the circle chains; returns a row per tier,
+    each with the positions after the first optimise ("first_trans") and
+    the chain's hash for phase (i)."""
     from scaloam_tpu_torch import config
     from scaloam_tpu_torch.models import posegraph as pg
     from scaloam_tpu_torch.types import Pose
@@ -448,8 +730,7 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
     rows = []
     for n, nl in tiers:
         gt, oq, ot, loops = circle_chain(n, nl, seed=n)
-        cfg = dataclasses.replace(config.PGOConfig(), max_keyframes=n, max_loops=nl,
-                                  loop_variance=1e-3, cauchy_k=100.0)
+        cfg = chain_pgo_cfg(config.PGOConfig(), n, nl)
         g = build_graph(torch, pg, Pose, cfg, oq, ot, loops, dev)
         drift = ate_m(ot, gt)
         ticks = []
@@ -459,6 +740,8 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
             g = pg.optimize(g, cfg)
             torch.cuda.synchronize()
             ticks.append((time.perf_counter() - t0) * 1e3)
+            if tick == 0:
+                first_trans = g.poses.trans.cpu().numpy()
             if tick == 0 and n == PGO_CPU_TIER:
                 g_cpu = pg.optimize(build_graph(torch, pg, Pose, cfg, oq, ot, loops, "cpu"), cfg)
                 diff = float((g.poses.trans.cpu() - g_cpu.poses.trans).abs().max())
@@ -478,7 +761,8 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
             syncs = sc.count()
         row = {"nodes": n, "loops": nl, "woodbury": pg.uses_woodbury(n, nl, cfg),
                "ms_per_optimise": ticks, "launches_per_optimise": launches,
-               "host_syncs_per_optimise": syncs, "ate_drift_m": drift, "ate_opt_m": opt}
+               "host_syncs_per_optimise": syncs, "ate_drift_m": drift, "ate_opt_m": opt,
+               "first_trans": first_trans, "chain_sha256": chain_sha256(oq, ot, loops)}
         log(f"pose graph {n} nodes / {nl} loops ({'Woodbury' if row['woodbury'] else 'chain-CG'}): "
             f"ms per optimise {[round(x, 2) for x in ticks]}, {launches} launches, "
             f"{syncs} host syncs, ATE {drift:.4f} -> {opt:.4f} m")
@@ -1181,6 +1465,105 @@ def k2b_cost(gn_iterations, Nc, Ns, n_valid_c, n_valid_s):
     return n_bytes, gn_iterations * (n_valid_c * K2_OPS_ITER[0] + n_valid_s * K2_OPS_ITER[1])
 
 
+def sq_dist_cost(Q, T):
+    """(bytes, operations) of one [Q, T] distance block: the points read
+    once, the block written once; per pair the dot's multiply and two fused
+    multiply-adds (5), the sum, the doubling and the difference, and per
+    point its squared norm (5)."""
+    return (Q + T) * 12 + Q * T * 4, Q * T * 8 + (Q + T) * 5
+
+
+def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
+    """The kernels of csrc/f32ops.cu against their plain versions
+    (ops/f32.py) on the card, bit for bit, on the largest input of each
+    that one FrontEnd step of frame 1 (after frame 0) passes, captured as
+    the step passes it: sq_dist's largest distance block, sum3_sq's
+    largest batch of vectors, atan2's azimuths. Also sq_dist on a
+    tie-heavy block of integer points, sum3_sq on integer vectors and
+    atan2 on the quadrants, axes and signed zeros, and each under
+    torch.func.vmap over those 2 problems: one launch, equal to a launch
+    a problem. Returns {name: {max_abs_err, ms, eager_ms, plain_ms,
+    bound_ms, bound_by, library_ms, shape}}."""
+    from scaloam_tpu_torch.models.frontend import FrontEnd
+    from scaloam_tpu_torch.ops import f32
+    from scaloam_tpu_torch.ops.kernels import f32ops
+
+    fe = FrontEnd(cfg, device=dev)
+    fe.step(dev_scans[0].xyz, dev_scans[0].mask)
+    kernels = {name: getattr(f32ops, name) for name in ROUNDING_KERNELS}
+    captured = {name: [] for name in ROUNDING_KERNELS}
+
+    def spy(name):
+        def call(*args):
+            captured[name].append(tuple(a.clone() for a in args))
+            return kernels[name](*args)
+        return call
+
+    for name in ROUNDING_KERNELS:
+        setattr(f32ops, name, spy(name))
+    try:
+        fe.step(dev_scans[1].xyz, dev_scans[1].mask)
+    finally:
+        for name, fn in kernels.items():
+            setattr(f32ops, name, fn)
+    # the most outputs: sq_dist's Q x T, the others' element count
+    size = lambda args: args[0].shape[0] * args[1].shape[0] if args[0].dim() == 2 and len(
+        args) == 2 else args[0].numel()
+    (q, t), (v,), (y, x) = (max(captured[name], key=size) for name in ROUNDING_KERNELS)
+    Q, T = q.shape[0], t.shape[0]
+    rng = np.random.default_rng(1)
+    ints = lambda *shape: torch.tensor(rng.integers(-6, 7, shape), dtype=torch.float32, device=dev)
+    special = torch.tensor(rng.uniform(-100, 100, (2, y.numel())), dtype=torch.float32,
+                           device=dev).reshape(2, *y.shape)
+    flat = special.view(2, -1)
+    flat[0, :64], flat[1, 64:128], flat[0, 128:192] = 0.0, 0.0, -0.0
+    cases = {"sq_dist": [("frame", (q, t)), ("ties", (ints(Q, 3), ints(T, 3)))],
+             "sum3_sq": [("frame", (v,)), ("integers", (ints(*v.shape),))],
+             "atan2": [("frame", (y, x)), ("quadrants", (special[0], special[1]))]}
+    plain = {"sq_dist": f32.sq_dist, "sum3_sq": f32.sum3_sq, "atan2": f32.atan2}
+    library = {"sq_dist": None, "sum3_sq": lambda a: torch.linalg.vecdot(a, a),
+               "atan2": torch.atan2}
+    n = v.numel() // 3
+    cost = {"sq_dist": sq_dist_cost(Q, T), "sum3_sq": (n * 16, n * 5),
+            "atan2": (y.numel() * 12, y.numel() * ATAN2_OPS)}
+    rows = {}
+    for name in ROUNDING_KERNELS:
+        kernel = kernels[name]
+        for label, args in cases[name]:
+            got, want = kernel(*args), plain[name](*args)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"{tag}{name} {label} {tuple(args[0].shape)}: differs from "
+                                     f"the plain version at {int((got != want).sum())} entries")
+            msg = f"{tag}{name} {label} {tuple(args[0].shape)}: kernel == plain bit for bit"
+            if library[name] is not None:
+                msg += (f" (the library call rounds otherwise at "
+                        f"{int((library[name](*args) != want).sum())} of {want.numel()})")
+            log(msg)
+        # both cases as one vmapped batch of 2
+        batch = [torch.stack(pair) for pair in zip(cases[name][0][1], cases[name][1][1])]
+        before = kernel.launches
+        got = torch.func.vmap(kernel)(*batch)
+        launched = kernel.launches - before
+        if launched != 1 or not all(torch.equal(got[i], kernel(*(a[i] for a in batch)))
+                                    for i in range(2)):
+            raise AssertionError(f"{tag}{name} vmapped over 2: {launched} launches, want 1 "
+                                 f"equal to a launch a problem")
+        args = cases[name][0][1]
+        call = lambda: kernel(*args)
+        rows[name] = dict(
+            max_abs_err=0.0, ms=graph_ms(torch, call, 100), eager_ms=cuda_ms(torch, call, 200),
+            plain_ms=cuda_ms(torch, lambda: plain[name](*args), 5),
+            library_ms=(None if library[name] is None
+                        else cuda_ms(torch, lambda: library[name](*args), 200)),
+            shape=[list(a.shape) for a in args])
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound_ms(*cost[name])
+        r = rows[name]
+        log(f"{tag}{name} times {r['shape']}: kernel {r['ms']:.4f} ms (eager call "
+            f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
 def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
     """Each kernel entry against its plain version at the shapes of cfg's
     frames (dev_scans, on the card), then timed. K1 on frame 1's selection
@@ -1339,6 +1722,9 @@ def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
         f"{rows['K2 B']['plain_ms']:.3f} ms, bound {rows['K2 B']['bound_ms']:.6f} ms "
         f"({kb_bytes} B, {kb_ops} ops), cluster "
         f"{gn_odometry.cluster_size(Nc, Ns, prepared=True)} blocks")
+
+    # ---- the rounding kernels on the inputs frame 1's step passes them
+    rows.update(rounding_checks(torch, dev, cfg, dev_scans, tag))
     return rows
 
 
@@ -1347,7 +1733,8 @@ def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
     counts set to 0 just before and read just after: K1 once a frame, K2 A
     from the second frame on, K2 B outer_iterations times a frame. Mapped
     poses within MAX_TRANS_ERR_M of gt; a fired keyframe has a finite,
-    non-empty cloud. Returns (ms/frame past WARM_FRAMES, launches, outputs)."""
+    non-empty cloud. Returns (ms/frame past WARM_FRAMES, launches, outputs,
+    the drive in the recording's layout for phase (i))."""
     from scaloam_tpu_torch.models.frontend import FrontEnd
 
     n = len(dev_scans)
@@ -1355,17 +1742,17 @@ def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
     fe = FrontEnd(cfg, device=dev)
     outs = []
     t_start = None
-    for i, scan in enumerate(dev_scans):
-        if i == WARM_FRAMES:
-            torch.cuda.synchronize()
-            t_start = time.perf_counter()
-        outs.append(fe.step(scan.xyz, scan.mask))
-    torch.cuda.synchronize()
+    with capture_frames() as frames:
+        for i, scan in enumerate(dev_scans):
+            if i == WARM_FRAMES:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            outs.append(fe.step(scan.xyz, scan.mask))
+        torch.cuda.synchronize()
     ms_frame = (time.perf_counter() - t_start) * 1e3 / (n - WARM_FRAMES)
     launches = _launch_counts()
     want = {"K1": n, "K2 A": n - 1, "K2 B": cfg.mapping.outer_iterations * n}
-    if launches != want:
-        raise AssertionError(f"{tag}front end launches {launches}, want {want}")
+    _check_launches(f"{tag}front end ", launches, want)
     mapped = torch.stack([o.mapped_pose.trans for o in outs]).cpu().numpy()
     odom = torch.stack([o.odom_world.trans for o in outs]).cpu().numpy()
     quats = torch.stack([o.mapped_pose.quat for o in outs]).cpu().numpy()
@@ -1383,7 +1770,7 @@ def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
     log(f"{tag}front end: {n} frames, {sum(fires)} keyframes, launches {launches}, "
         f"{ms_frame:.2f} ms/frame over frames {WARM_FRAMES}-{n - 1}, max mapped-pose error "
         f"{err.max():.4f} m (mean {err.mean():.4f} m), final odom {odom[-1].round(3).tolist()}")
-    return ms_frame, launches, outs
+    return ms_frame, launches, outs, frontend_record(outs, frames)
 
 
 def preset_phase(torch, dev, name, scans, gt):
@@ -1399,10 +1786,11 @@ def preset_phase(torch, dev, name, scans, gt):
         f"(max_points {cfg.sensor.max_points}, {cfg.sensor.n_scans} x "
         f"{cfg.sensor.max_points_per_ring} range image)")
     rows = kernel_checks(torch, dev, cfg, dev_scans, tag)
-    ms_frame, launches, _ = frontend_drive(torch, dev, cfg, dev_scans, gt, tag)
+    ms_frame, launches, _, record = frontend_drive(torch, dev, cfg, dev_scans, gt, tag)
     for key, row in rows.items():
         row["launches"] = launches[key]
-    return {"kernels": rows, "ms_per_frame": ms_frame}
+    record["scan_sha256"] = [sha256_f32(x) for x in scans]
+    return {"kernels": rows, "ms_per_frame": ms_frame, "record": record}
 
 
 def write_mulran(seq, scans, gt):
@@ -1428,6 +1816,17 @@ def write_mulran(seq, scans, gt):
     return stamps
 
 
+def mulran_ate(out, stamps, gt, ate_rmse) -> float:
+    """ATE of a MulRan run's optimized_poses.txt against the course's poses
+    (relative to its first), each keyframe matched to its scan through
+    times.txt; `ate_rmse` is either package's utils.evaluation.ate_rmse."""
+    est = np.loadtxt(os.path.join(out, "optimized_poses.txt")).reshape(-1, 3, 4)[:, :, 3]
+    times = np.loadtxt(os.path.join(out, "times.txt")).reshape(-1)
+    frames = np.abs(stamps[None, :] * 1e-9 - times[:, None]).argmin(axis=1)
+    gt_rel = np.stack([np.linalg.inv(gt[0]) @ g for g in gt])
+    return ate_rmse(est, gt_rel[frames][:, :3, 3])
+
+
 def mulran_cli_phase(torch, root, made, counters):
     """(g2): the README's MulRan usage, `run.main(["--preset",
     "mulran_os1_64", "--mulran-dir", d, "--use-gps", "--out", o])`, on a
@@ -1437,8 +1836,8 @@ def mulran_cli_phase(torch, root, made, counters):
     import shutil
 
     from scaloam_tpu_torch import run
-    from scaloam_tpu_torch.io.artifacts import load_kitti_poses
     from scaloam_tpu_torch.models import pipeline, posegraph
+    from scaloam_tpu_torch.ops import icp
     from scaloam_tpu_torch.utils.evaluation import ate_rmse
 
     base = os.path.join(root, "build", "smoke_mulran")
@@ -1448,7 +1847,8 @@ def mulran_cli_phase(torch, root, made, counters):
     stamps = write_mulran(seq, scans, gt)
 
     systems, frame_ms, kf_flags, opt_ms, tiers = [], [], [], [], set()
-    optimize = posegraph.optimize
+    verify, last = [], []
+    optimize, verify_loop = posegraph.optimize, icp.verify_loop
 
     def timed_optimize(graph, cfg, *a, **k):
         torch.cuda.synchronize()
@@ -1460,6 +1860,11 @@ def mulran_cli_phase(torch, root, made, counters):
         tiers.add((N, L, "woodbury" if posegraph.uses_woodbury(N, L, cfg) else
                    "chain-CG" if N <= cfg.wb_max_nodes else "large chain-CG"))
         return new
+
+    def spy_verify_loop(*a, **k):
+        res = verify_loop(*a, **k)
+        last.append(res[0])
+        return res
 
     class Recorded(pipeline.SlamSystem):
         def __init__(self, *a, **k):
@@ -1475,8 +1880,14 @@ def mulran_cli_phase(torch, root, made, counters):
             kf_flags.append(r.is_keyframe)
             return r
 
+        def _icp_verify(self, curr, loop_idx, yaw, poses=None):
+            z = super()._icp_verify(curr, loop_idx, yaw, poses=poses)
+            verify.append((curr, loop_idx, float(last[-1].fitness), z is not None))
+            return z
+
     system_cls = pipeline.SlamSystem
-    pipeline.SlamSystem, posegraph.optimize = Recorded, timed_optimize
+    pipeline.SlamSystem, posegraph.optimize, icp.verify_loop = (
+        Recorded, timed_optimize, spy_verify_loop)
     for counter in counters:
         counter.launches = 0
     buf = io.StringIO()
@@ -1486,7 +1897,8 @@ def mulran_cli_phase(torch, root, made, counters):
             rc = run.main(["--preset", "mulran_os1_64", "--mulran-dir", seq, "--use-gps",
                            "--out", out])
     finally:
-        pipeline.SlamSystem, posegraph.optimize = system_cls, optimize
+        pipeline.SlamSystem, posegraph.optimize, icp.verify_loop = (
+            system_cls, optimize, verify_loop)
     wall = time.perf_counter() - t0
     launches = dict(zip(("K1", "K2 A", "K2 B"), (c.launches for c in counters)))
     if rc != 0:
@@ -1498,20 +1910,28 @@ def mulran_cli_phase(torch, root, made, counters):
     if launches != want:
         raise AssertionError(f"(g2) launches {launches}, want {want}")
     n_gps = int(s.graph.gps_valid.sum())
-    est = load_kitti_poses(os.path.join(out, "optimized_poses.txt"))
-    times = np.loadtxt(os.path.join(out, "times.txt")).reshape(-1)
-    frames = np.abs(stamps[None, :] * 1e-9 - times[:, None]).argmin(axis=1)
-    gt_rel = np.stack([np.linalg.inv(gt[0]) @ g for g in gt])
-    ate = ate_rmse(est, gt_rel[frames])
+    est = np.loadtxt(os.path.join(out, "optimized_poses.txt")).reshape(-1, 3, 4)
+    ate = mulran_ate(out, stamps, gt, ate_rmse)
     if not (res["frames"] == n and res["loops"] >= 1 and n_gps >= 1
             and s._gps_alt_offset == G2_GPS_ALT_M and len(est) == res["keyframes"]
             and np.isfinite(est).all() and ate <= SYS_ATE_MAX_M):
         raise AssertionError(f"(g2) {res}, {n_gps} GPS factors, altitude offset "
                              f"{s._gps_alt_offset}, ATE {ate:.4f} m")
+    record = {
+        "keyframes": np.array([kf.frame for kf in s.keyframes], np.int32),
+        "verify": np.array([v[:2] for v in verify], np.int32).reshape(-1, 2),
+        "verify_fitness": np.array([v[2] for v in verify], np.float32),
+        "verify_accepted": np.array([v[3] for v in verify], bool),
+        "loops": np.array(s.loops_found, np.int32).reshape(-1, 2), "gps_factors": n_gps,
+        "optimized_poses": est, "ate_m": ate,
+        "scan_sha256": [sha256_f32(x) for x in scans],
+        "fitness_threshold": s.cfg.loop.fitness_threshold,
+    }
     kf = np.asarray(kf_flags)
     ms = np.asarray(frame_ms)[2:]
     kf = kf[2:]
     return {
+        "record": record,
         "result": res, "wall_s": wall, "gps_factors": n_gps, "ate_m": ate,
         "launches": launches, "loops": s.loops_found,
         "ms_per_frame_keyframe_median": float(np.median(ms[kf])) if kf.any() else None,
@@ -1651,10 +2071,10 @@ def _h_batched(torch, cfg, xyz, mask):
             t0 = time.perf_counter()
         _zero_launches()
         o, m, o_pose, m_pose = multiseq.frame_batch(o, m, xyz[f], mask[f], cfg)
-        got = _launch_counts()
         want = {"K1": 1, "K2 A": int(f > 0), "K2 B": cfg.mapping.outer_iterations}
-        if got != want:
-            raise AssertionError(f"(h) B={B} frame {f}: launches {got}, want {want}")
+        # the first frame's odometry sweeps no candidates
+        _check_launches(f"(h) B={B} frame {f}: ", _launch_counts(), want,
+                        ROUNDING_KERNELS if f > 0 else ("sum3_sq", "atan2"))
         odom.append(_qt(o_pose, torch))
         mapped.append(_qt(m_pose, torch))
         states.append(o)
@@ -1883,6 +2303,32 @@ def multiseq_phase(torch, dev, cfg, dev_scans):
     return stats, rows
 
 
+def reference_phase(main_record, g1, g2, pgo_rows):
+    """(i): the outputs the earlier phases produced (the main path, (g1),
+    (g2), (a)'s first optimise) against the JAX package's recorded runs of
+    the same configurations, input hashes first. Returns the largest
+    differences per drive."""
+    meta, arrays = load_reference()
+    log(f"(i) reference: {REFERENCE_NPZ} recorded by {meta['tool']} at commit "
+        f"{meta['commit']} ({json.dumps(meta['versions'])}; {meta['kernels']})")
+    out = {}
+    fronts = [("R1", main_record)] + [(f"R2.{name}", g1[name]["record"]) for name, _ in G_PRESETS]
+    for drive, got in fronts:
+        want = drive_arrays(arrays, drive)
+        check_hashes(drive, want["scan_sha256"], got["scan_sha256"])
+        out[drive] = compare_frontend(drive, want, got)
+    want = drive_arrays(arrays, "R3")
+    got = g2["record"]
+    check_hashes("R3", want["scan_sha256"], got["scan_sha256"])
+    out["R3"] = compare_mulran(want, got, got["fitness_threshold"])
+    rows = {f"R4.{row['nodes']}": row for row in pgo_rows}
+    for drive in sorted({k.rsplit(".", 1)[0] for k in arrays if k.startswith("R4.")}):
+        want, row = drive_arrays(arrays, drive), rows[drive]
+        check_hashes(drive, [want["chain_sha256"]], [row["chain_sha256"]])
+        out[drive] = compare_pose_graph(row["nodes"], want["trans"], row["first_trans"])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1933,11 +2379,7 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     cfg = config.kitti_hdl64()
     cap = cfg.sensor.max_points
     t0 = time.perf_counter()
-    world = synthetic.make_world(seed=3, n_boxes=60, extent=70.0)
-    scans, gt = synthetic.simulate_trajectory(
-        world, n_frames=N_FRAMES, speed=1.2, radius=40.0, n_scans=64,
-        n_azimuth=2048, seed=7,
-    )
+    scans, gt = preset_drive(synthetic, cfg.sensor, MAIN_COLS)
     dev_scans = [LidarScan.from_numpy(s, cap, dev) for s in scans]
     torch.cuda.synchronize()
     log(f"data: {N_FRAMES} scans of {[len(s) for s in scans[:3]]}... points "
@@ -1948,14 +2390,16 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
 
     # ---- main path: the full-width front end, launches counted
     t_phase = time.perf_counter()
-    _, _, outs = frontend_drive(torch, dev, cfg, dev_scans, gt, "main path: ")
+    _, main_launches, outs, main_record = frontend_drive(torch, dev, cfg, dev_scans, gt,
+                                                         "main path: ")
+    main_record["scan_sha256"] = [sha256_f32(x) for x in scans]
     kf_out = next(o for o in outs if bool(o.fire))
     kf_cloud = (kf_out.kf_xyz, kf_out.kf_mask)  # for (g3)
     log(f"phase wall: front end {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (a) the pose graph at users' sizes
     t_phase = time.perf_counter()
-    pose_graph_phase(torch, dev)
+    pgo_rows = pose_graph_phase(torch, dev)
     log(f"phase wall: (a) pose graph {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (b) the system over the 160-frame loop drive, launches counted
@@ -2065,7 +2509,7 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     log(f"phase wall: (g1) presets {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     g2 = mulran_cli_phase(torch, os.getcwd(), mulran.get(), counters)
-    log(f"(g2) {json.dumps(g2)}")
+    log(f"(g2) {json.dumps({k: v for k, v in g2.items() if k != 'record'})}")
     log(f"(g2) run.main --preset mulran_os1_64 --mulran-dir --use-gps: "
         f"{g2['result']['frames']} frames, {g2['result']['keyframes']} keyframes, loops "
         f"{g2['loops']}, {g2['gps_factors']} GPS factors, ATE {g2['ate_m']:.4f} m, "
@@ -2086,6 +2530,12 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     h_stats, h_rows = multiseq_phase(torch, dev, cfg, dev_scans)
     log(f"(h) {json.dumps(h_stats)}")
     log(f"phase wall: (h) batched multi-sequence front end {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (i) the full-width runs above against the recorded JAX runs
+    t_phase = time.perf_counter()
+    ref = reference_phase(main_record, g1, g2, pgo_rows)
+    log(f"(i) {json.dumps(ref)}")
+    log(f"phase wall: (i) against the recorded JAX runs {time.perf_counter() - t_phase:.1f} s")
     log(f"script wall: {time.perf_counter() - t_script:.1f} s")
 
     gn_src = "scaloam_tpu_torch/csrc/gn_odometry.cu"
@@ -2110,6 +2560,20 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
                 for name in g1},
             "launches_g2": g2["launches"][key]})
+    f32_src = "scaloam_tpu_torch/csrc/f32ops.cu"
+    for key, replaces in (("sq_dist", "scaloam_tpu/ops/voxel.py:534"),
+                          ("sum3_sq", "scaloam_tpu/ops/gridmap.py:230"),
+                          ("atan2", "scaloam_tpu/ops/features.py:52")):
+        row = rows[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": f32_src, "replaces": replaces,
+            "launches": main_launches[key], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "eager_ms": row["eager_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "matched": True, "shape": row["shape"],
+            "g1": {name: {k: g1[name]["kernels"][key][k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for name in g1}})
     for key, m in meta.items():
         row = h_rows[key]
         kernels.append({

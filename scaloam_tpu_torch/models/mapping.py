@@ -17,7 +17,7 @@ import torch
 from scaloam_tpu_torch import device as _device
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.ops import fit, gridmap, se3, voxel
-from scaloam_tpu_torch.ops.kernels import gn_odometry
+from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry
 from scaloam_tpu_torch.types import FeatureCloud, Pose
 
 
@@ -69,7 +69,7 @@ def _rerank(pose: Pose, pts, nb8, k: int):
     """Exact k-NN among the cached candidates at `pose` (far-sentinel slots
     rank last). Returns (d [Q, k] ascending, nb [Q, k, 3])."""
     pw = se3.apply(pose, pts)
-    d8 = se3.sq_norm(nb8 - pw[:, None, :])  # [Q, 8]
+    d8 = f32ops.sum3_sq(nb8 - pw[:, None, :])  # [Q, 8], rounded as the reference ranks
     return voxel.argmin_topk(d8, k, nb8)
 
 

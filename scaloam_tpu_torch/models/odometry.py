@@ -25,7 +25,7 @@ import torch
 from scaloam_tpu_torch import device as _device
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.ops import correspond, gn, residuals, se3, voxel
-from scaloam_tpu_torch.ops.kernels import gn_odometry
+from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry
 from scaloam_tpu_torch.types import FeatureCloud, Pose, ScanFeatures
 
 
@@ -99,7 +99,7 @@ def _pick1(q: torch.Tensor, cand: torch.Tensor):
     """Nearer of the two cached candidates at the current pose.
     q [Q, 3], cand [Q, 2, 3] -> (d [Q], pt [Q, 3])."""
     diff = cand - q[:, None, :]
-    d = se3.sq_norm(diff)  # [Q, 2]
+    d = f32ops.sum3_sq(diff)  # [Q, 2], rounded as the reference ranks
     take2 = d[:, 1] < d[:, 0]
     pt = torch.where(take2[:, None], cand[:, 1], cand[:, 0])
     return torch.minimum(d[:, 0], d[:, 1]), pt

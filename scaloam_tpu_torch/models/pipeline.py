@@ -35,6 +35,7 @@ from scaloam_tpu_torch.models import odometry as odometry_mod
 from scaloam_tpu_torch.models import posegraph as pg
 from scaloam_tpu_torch.models import scancontext as scm
 from scaloam_tpu_torch.ops import features, icp, se3, voxel
+from scaloam_tpu_torch.ops.kernels import f32ops
 from scaloam_tpu_torch.types import LidarScan, Pose
 
 
@@ -62,7 +63,7 @@ def init_gate_state(device=None) -> GateState:
 def gate_step(gs: GateState, quat, trans, meter_gap: float, deg_gap: float):
     """One keyframe-gate update; returns (new_state, fire bool scalar).
     The first frame always fires; firing resets both accumulators."""
-    dt = torch.sqrt(se3.sq_norm(trans - gs.last_trans))
+    dt = torch.sqrt(f32ops.sum3_sq(trans - gs.last_trans))
     r, p, y = se3.quat_to_rpy(se3.quat_mul(se3.quat_conj(gs.last_quat), quat))
     live = gs.initialized
     ta = gs.trans_accum + torch.where(live, dt, 0.0)

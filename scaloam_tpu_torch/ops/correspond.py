@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from scaloam_tpu_torch.ops import voxel
+from scaloam_tpu_torch.ops.kernels import f32ops
 
 
 def _ring_masks(query, ring_ref, exclude_idx, target_ring, nearby: float, t0: int, n: int):
@@ -35,7 +36,7 @@ def ring_constrained_nn(query, query_mask, ring_ref, exclude_idx, target, target
             torch.zeros((Q,), dtype=torch.int64, device=dev)] * 2
     for t0 in range(0, target.shape[0], tile):
         tgt = target[t0 : t0 + tile]
-        d = voxel.sq_dist(query, tgt)
+        d = f32ops.sq_dist(query, tgt)
         base = target_mask[None, t0 : t0 + tile]
         for k, cls in enumerate(_ring_masks(query, ring_ref, exclude_idx, target_ring,
                                             nearby, t0, tgt.shape[0])):
@@ -60,7 +61,7 @@ def ring_constrained_nn2(query, query_mask, ring_ref, exclude_idx, target, targe
     best = [(d0, i0, d0, i0)] * 2
     for t0 in range(0, target.shape[0], tile):
         tgt = target[t0 : t0 + tile]
-        d = voxel.sq_dist(query, tgt)
+        d = f32ops.sq_dist(query, tgt)
         base = target_mask[None, t0 : t0 + tile]
         for k, cls in enumerate(_ring_masks(query, ring_ref, exclude_idx, target_ring,
                                             nearby, t0, tgt.shape[0])):
@@ -98,7 +99,7 @@ def ring_constrained_nn2_pts(
     for t0 in range(0, target.shape[0], tile):
         tgt = target[t0 : t0 + tile]
         base = target_mask[None, t0 : t0 + tile]
-        d = voxel.sq_dist(query, tgt)
+        d = f32ops.sq_dist(query, tgt)
         adr = torch.abs(target_ring[None, t0 : t0 + tile] - ring_ref[:, None])
         other = (adr >= 0.5) & (adr <= nearby)
         if want_same:

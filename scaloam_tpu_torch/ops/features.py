@@ -20,8 +20,8 @@ from typing import NamedTuple
 import torch
 
 from scaloam_tpu_torch.config import SlamConfig
-from scaloam_tpu_torch.ops import voxel
-from scaloam_tpu_torch.ops.kernels import selection
+from scaloam_tpu_torch.ops import f32, voxel
+from scaloam_tpu_torch.ops.kernels import f32ops, selection
 from scaloam_tpu_torch.types import FeatureCloud, LidarScan, RangeImage, ScanFeatures
 
 _DEG = 180.0 / math.pi
@@ -72,17 +72,22 @@ def _ring_id(xyz: torch.Tensor, lidar_type: str, n_scans: int):
     # ulp of the angle decides validity there: form sqrt(x^2 + y^2) as the
     # reference's compiled code does (one fused multiply-add, correctly
     # rounded square root).
-    hyp = torch.sqrt(_fma(x, x, y * y).double()).float()
-    angle = torch.atan2(z, hyp) * _DEG
+    hyp = torch.sqrt(f32.fma_f32(x, x, y * y).double()).float()
+    # atan2 as the reference's C library rounds it: beams of the synthetic
+    # OS1-64 sit exactly on its ring bounds, where the last ulp decides.
+    rad = f32ops.atan2(z, hyp)
+    angle = rad * _DEG
 
     def trunc(v):
         return torch.trunc(v).to(torch.int32)
 
+    # Where the angle feeds one sum, the reference's compiled code forms
+    # angle + c as one fused multiply-add of the radians.
     if lidar_type == "VLP16":
-        sid = trunc((angle + 15.0) / 2.0 + 0.5)
+        sid = trunc(f32.fma_f32(rad, _DEG, 15.0) / 2.0 + 0.5)
         ok = (sid >= 0) & (sid <= n_scans - 1)
     elif lidar_type == "HDL32":
-        sid = trunc((angle + 92.0 / 3.0) * 3.0 / 4.0)
+        sid = trunc(f32.fma_f32(rad, _DEG, 92.0 / 3.0) * 3.0 / 4.0)
         ok = (sid >= 0) & (sid <= n_scans - 1)
     elif lidar_type == "HDL64":
         upper = trunc((2.0 - angle) * 3.0 + 0.5)
@@ -90,7 +95,7 @@ def _ring_id(xyz: torch.Tensor, lidar_type: str, n_scans: int):
         sid = torch.where(angle >= -8.83, upper, lower)
         ok = (angle <= 2.0) & (angle >= -24.33) & (sid >= 0) & (sid <= 50)
     elif lidar_type == "OS1-64":
-        sid = trunc((angle + 22.5) / 2.0 + 0.5)
+        sid = trunc(f32.fma_f32(rad, _DEG, 22.5) / 2.0 + 0.5)
         ok = (sid >= 0) & (sid <= n_scans - 1)
     else:
         raise ValueError(f"unknown lidar_type {lidar_type}")
@@ -111,16 +116,19 @@ def _azimuth_scalars(xyz: torch.Tensor, valid: torch.Tensor, flip_valid: torch.T
     """Scalar side of the sequential halfPassed unwrap: sweep start/end
     azimuths, the index of the first flip and whether any point flips."""
     n = xyz.shape[0]
-    ori_raw = -torch.atan2(xyz[:, 1], xyz[:, 0])
+    ori_raw = -f32ops.atan2(xyz[:, 1], xyz[:, 0])
     first = _first_true(valid)
     last = n - 1 - _first_true(torch.flip(valid, dims=[0]))
     # index_select, not ori_raw[first]: a 0-d index tensor would be read
     # back to the host.
     start_ori = ori_raw.index_select(0, first.reshape(1))[0]
-    end_ori = ori_raw.index_select(0, last.reshape(1))[0] + 2 * _PI
+    last_ori = ori_raw.index_select(0, last.reshape(1))[0]
+    end_ori = last_ori + 2 * _PI
     d = end_ori - start_ori
+    # The reference's compiled code folds (a + c1) +- c2 into a + (c1 +- c2):
+    # end_ori -+ 2 pi is last_ori + 0 or last_ori + 4 pi, one rounding.
     end_ori = torch.where(
-        d > 3 * _PI, end_ori - 2 * _PI, torch.where(d < _PI, end_ori + 2 * _PI, end_ori)
+        d > 3 * _PI, last_ori, torch.where(d < _PI, last_ori + 4 * _PI, end_ori)
     )
     o1 = ori_raw
     o1 = torch.where(o1 < start_ori - _PI / 2, o1 + 2 * _PI, o1)
@@ -132,12 +140,13 @@ def _azimuth_scalars(xyz: torch.Tensor, valid: torch.Tensor, flip_valid: torch.T
 def _relative_time_at(x, y, idx, start_ori, end_ori, first_flip, any_flip):
     """Per-point half of the unwrap, evaluable in any order (idx is the
     original stream position, deciding halfPassed)."""
-    ori_raw = -torch.atan2(y, x)
+    ori_raw = -f32ops.atan2(y, x)
     o1 = ori_raw
     o1 = torch.where(o1 < start_ori - _PI / 2, o1 + 2 * _PI, o1)
     o1 = torch.where(o1 > start_ori + 3 * _PI / 2, o1 - 2 * _PI, o1)
     o2 = ori_raw + 2 * _PI
-    o2 = torch.where(o2 < end_ori - 3 * _PI / 2, o2 + 2 * _PI, o2)
+    # (ori_raw + 2 pi) + 2 pi, folded as the reference's compiled code folds it
+    o2 = torch.where(o2 < end_ori - 3 * _PI / 2, ori_raw + 4 * _PI, o2)
     o2 = torch.where(o2 > end_ori + _PI / 2, o2 - 2 * _PI, o2)
     half_passed = (idx > first_flip) & any_flip
     ori = torch.where(half_passed, o2, o1)
@@ -186,18 +195,6 @@ def build_range_image(xyz, ring, valid, n_scans: int, width: int, rel_scalars) -
 # ---------------------------------------------------------------------------
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * b + c with a single float32 rounding (exact float64 product)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _sum3_sq(v: torch.Tensor) -> torch.Tensor:
-    """Squared norm over the last axis of 3, rounded like the reference's
-    compiled reduction (a chain of fused multiply-adds)."""
-    v0, v1, v2 = v.unbind(-1)
-    return _fma(v2, v2, _fma(v1, v1, v0 * v0))
-
-
 def _curvature(img: torch.Tensor, radius: int = 5) -> torch.Tensor:
     """curv[r, j] = | sum_{|l|<=R} x[r, j+l] - (2R+1) x[r, j] |^2, from a
     prefix sum padded by edge values (edges are masked by the caller)."""
@@ -212,10 +209,8 @@ def _curvature(img: torch.Tensor, radius: int = 5) -> torch.Tensor:
     # The reference's compiler contracts `win - wl*img` and the squared sum
     # into fused multiply-adds (one rounding each). For planar points the
     # difference cancels to a few ulps of `win`, so the curvature ordering
-    # hangs on that rounding: emulate it in float64 (exact products, one
-    # rounding to float32 per fused step).
-    diff = (win.double() - float(wl) * img.double()).float()
-    return _sum3_sq(diff)
+    # hangs on that rounding: one rounding per fused step (f32).
+    return f32ops.sum3_sq(f32.fma_f32(img, -float(wl), win))
 
 
 def _suppression_reach(img: torch.Tensor, count: torch.Tensor, radius: int, gap_sq: float):
@@ -223,7 +218,7 @@ def _suppression_reach(img: torch.Tensor, count: torch.Tensor, radius: int, gap_
     a range discontinuity."""
     S, w = img.shape[0], img.shape[1]
     dev = img.device
-    g = _sum3_sq(img[:, 1:] - img[:, :-1])  # gap between j and j+1
+    g = f32ops.sum3_sq(img[:, 1:] - img[:, :-1])  # gap between j and j+1
     in_ring = torch.arange(w - 1, device=dev)[None, :] < (count[:, None] - 1)
     ok = (g <= gap_sq) & in_ring
     pad = ok.new_zeros((S, radius))
@@ -270,7 +265,7 @@ def selection_inputs(scan: LidarScan, cfg: SlamConfig) -> SelectionInputs:
 
     # NaN + near-range removal.
     finite = torch.all(torch.isfinite(xyz), dim=-1)
-    valid = mask & finite & (_sum3_sq(xyz) >= sensor.minimum_range**2)
+    valid = mask & finite & (f32ops.sum3_sq(xyz) >= sensor.minimum_range**2)
 
     ring, ring_ok = _ring_id(xyz, sensor.lidar_type, S)
     rel_scalars = _azimuth_scalars(xyz, valid, valid & ring_ok)

@@ -12,7 +12,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from scaloam_tpu_torch.ops import voxel as _voxel
+from scaloam_tpu_torch.ops import f32, voxel as _voxel
+from scaloam_tpu_torch.ops.kernels import f32ops
 
 _FAR = 1e9  # sentinel position for empty point slots (see knn_grid)
 _NO_CELL = 2**30  # cell coordinate of a never-written cell
@@ -55,7 +56,7 @@ def insert(grid: GridMap, xyz: torch.Tensor, mask: torch.Tensor,
     N = xyz.shape[0]
     C, K = grid.pts.shape[0], grid.pts.shape[1]
     dev = xyz.device
-    cc = torch.floor(xyz / cell_size).to(torch.int32)
+    cc = f32.cell_of(xyz, cell_size)
     idx = _flat_idx(cc, gx, gy, gz).to(torch.int64)
     idx = torch.where(mask, idx, C)  # invalid -> dump slot
     idx_c = torch.clamp(idx, max=C - 1)
@@ -66,8 +67,7 @@ def insert(grid: GridMap, xyz: torch.Tensor, mask: torch.Tensor,
 
     # Occupancy dedup vs existing cell content (only when fresh).
     cell_pts = grid.pts[idx_c]  # [N, K, 3]
-    diff = cell_pts - xyz[:, None, :]
-    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+    d2 = candidate_sq_dist(cell_pts, xyz)
     occ = torch.arange(K, device=dev)[None, :] < base[:, None]
     near = torch.any(occ & (d2 < dedup_radius * dedup_radius), dim=-1) & fresh
     want = mask & ~near
@@ -135,6 +135,19 @@ def candidate_cells8(lo: torch.Tensor, hi: torch.Tensor) -> Tuple[torch.Tensor, 
     return cc8, uniq
 
 
+def candidate_bounds(query: torch.Tensor, cell_size: float, reach: float):
+    """Per query [Q, 3], the lowest and highest cell its reach touches on
+    each axis: (lo [Q, 3], hi [Q, 3]) int32."""
+    return f32.cell_of(query - reach, cell_size), f32.cell_of(query + reach, cell_size)
+
+
+def candidate_sq_dist(cand: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Squared distances of candidate points [Q, ..., 3] to their query
+    [Q, 3], rounded as the reference ranks them (a chain of fused
+    multiply-adds): [Q, ...]."""
+    return f32ops.sum3_sq(cand - query.reshape(query.shape[0], *[1] * (cand.dim() - 2), 3))
+
+
 def knn_grid(grid: GridMap, query: torch.Tensor, query_mask: torch.Tensor,
              gx: int, gy: int, gz: int, cell_size: float, reach: float, k: int):
     """Exact k-NN among map points within `reach` of each query over the
@@ -145,8 +158,7 @@ def knn_grid(grid: GridMap, query: torch.Tensor, query_mask: torch.Tensor,
     if reach > min(gx, gy, gz) * cell_size / 4:
         raise ValueError("reach too close to the torus period")
     Q = query.shape[0]
-    lo = torch.floor((query - reach) / cell_size).to(torch.int32)
-    hi = torch.floor((query + reach) / cell_size).to(torch.int32)
+    lo, hi = candidate_bounds(query, cell_size, reach)
     if 2 * reach <= cell_size:
         cc8, uniq = candidate_cells8(lo, hi)
     else:
@@ -155,8 +167,7 @@ def knn_grid(grid: GridMap, query: torch.Tensor, query_mask: torch.Tensor,
         uniq = None
     idx8 = _flat_idx(cc8, gx, gy, gz).to(torch.int64)  # [Q, 8]
     cand = grid.pts[idx8]  # [Q, 8, K, 3]
-    diff = cand - query[:, None, None, :]
-    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+    d2 = candidate_sq_dist(cand, query)
     if uniq is not None:
         d2 = torch.where(uniq[:, :, None], d2, _voxel.BIG)
     d_k, nn = _voxel.argmin_topk(d2.reshape(Q, -1), k, cand.reshape(Q, -1, 3))

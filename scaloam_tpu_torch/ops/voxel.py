@@ -4,10 +4,12 @@
 The reference's one-hot-matmul payload selects, bf16 splits, blocked scans
 and TPU tile tuning are not carried over: winners are index gathers and
 prefix sums are torch.cumsum. The NN searches rank by the reference's
-|q|^2 + |t|^2 - 2 q.t (a plain f32 matmul, TF32 off), since the ranking of
-near-ties changes the odometry solve. Sorts are
-stable so equal keys keep index order, as the reference's CPU sort does;
-ties in every top-k go to the lowest index.
+|q|^2 + |t|^2 - 2 q.t, rounded as the reference's CPU program rounds it
+(kernels.f32ops.sq_dist; it may dip below 0 for coincident points, and
+callers clamp the winners at 0 as the reference does), since the ranking
+of near-ties changes the odometry solve. Sorts are stable so equal keys
+keep index order, as the reference's CPU sort does; ties in every top-k
+go to the lowest index.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from scaloam_tpu_torch.ops import f32
+from scaloam_tpu_torch.ops.kernels import f32ops
 
 BIG = 1e30  # sentinel distance for masked pairs
 _INT32_MAX = 2**31 - 1
@@ -102,13 +107,12 @@ def voxel_downsample(
     centroid-averaged alongside.
     Returns (xyz [capacity, 3], mask [capacity], extra [capacity, E] or None)."""
     n = xyz.shape[0]
-    coords = torch.where(mask[:, None], torch.floor(xyz / voxel_size).to(torch.int32),
-                         _SENTINEL)
+    coords = torch.where(mask[:, None], f32.cell_of(xyz, voxel_size), _SENTINEL)
     gk = (torch.where(mask, group_key.to(torch.int32), _SENTINEL) if group_key is not None
           else torch.zeros(n, dtype=torch.int32, device=xyz.device))
     keys = [coords[:, 2], coords[:, 1], coords[:, 0]]
     if priority_center is not None:
-        cc = torch.floor(priority_center / voxel_size).to(torch.int32)
+        cc = f32.cell_of(priority_center, voxel_size)
         dist = torch.amax(torch.abs(coords - cc[None, :]), dim=-1)
         keys.append(torch.where(mask, dist, _SENTINEL))
     order = _lexsort(keys + [gk])
@@ -144,7 +148,7 @@ def voxel_downsample_packed(
     dropped first when the voxel count exceeds `capacity`.
     Returns (xyz [min(capacity, N), 3], mask, extra or None)."""
     n = xyz.shape[0]
-    coords = torch.floor(xyz / voxel_size).to(torch.int32)
+    coords = f32.cell_of(xyz, voxel_size)
     denom = torch.clamp(torch.sum(mask.to(torch.int32)), min=1)
     center = torch.sum(torch.where(mask[:, None], coords, 0), dim=0) // denom
     c = (coords - center[None, :]).to(torch.int32)
@@ -159,14 +163,15 @@ def voxel_downsample_packed(
         key = (key << z_bits) | clipb(c[:, 2], z_bits)
     used_bits = xy_bits * 2 + z_bits
     if shell_bits > 0:
-        cheb = torch.amax(torch.abs(c), dim=-1)
+        cheb = torch.clamp(torch.amax(torch.abs(c), dim=-1), min=1)
         base = 1 << (xy_bits - 4)  # first shell radius: 1/8 of half-range
-        ratio = torch.clamp(cheb, min=1).to(torch.float32) / base
-        # log2 as log(x)/log(2), the reference's formulation
-        log2 = torch.log(ratio) / torch.log(torch.tensor(2.0, device=xyz.device))
-        shell = torch.clamp(
-            torch.ceil(log2 + 1.0).to(torch.int32), 0, (1 << shell_bits) - 1
-        )
+        # The reference's shell, clip(ceil(log2(cheb / base) + 1)), in
+        # integers: shell s >= 2 holds cheb > base * 2^(s - 2). Compiled
+        # (as its keyframe prep always runs), its float32 log2 lands just
+        # above -1 at cheb == base / 2, which so falls in shell 1, not 0.
+        shell = (2 * cheb >= base).to(torch.int32)
+        for level in range(2, 1 << shell_bits):
+            shell = shell + (4 * cheb > base << level).to(torch.int32)
         key = (shell << used_bits) | key
     key = torch.where(mask, key, _INT32_MAX).to(torch.int32)
 
@@ -209,7 +214,7 @@ def voxel_downsample_rows(
     S, W = mask.shape
     n = S * W
     dev = img.device
-    c = torch.floor(img[:, :, :2] / voxel_size).to(torch.int32)
+    c = f32.cell_of(img[:, :, :2], voxel_size)
     same = torch.all(c[:, 1:] == c[:, :-1], dim=-1) & mask[:, 1:] & mask[:, :-1]
     same_as_prev = torch.cat([same.new_zeros((S, 1)), same], dim=1)
     new_run = mask & ~same_as_prev
@@ -276,16 +281,6 @@ def argmin_topk(d: torch.Tensor, k: int, payload: Optional[torch.Tensor] = None)
 # ---------------------------------------------------------------------------
 
 
-def sq_dist(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """[Q, 3] x [T, 3] -> [Q, T] squared distances in the reference's
-    ranking form |q|^2 + |t|^2 - 2 q.t (f32, TF32 off), so near-ties rank
-    as they do there. May dip below 0 for coincident points; callers clamp
-    the winners at 0 as the reference does."""
-    q2 = torch.sum(query * query, dim=-1, keepdim=True)
-    t2 = torch.sum(target * target, dim=-1)[None, :]
-    return q2 + t2 - 2.0 * torch.matmul(query, target.T)
-
-
 def tile_top2(d: torch.Tensor, base: int):
     """Smallest two entries per row of d [Q, tile] by double argmin.
     Returns (d1, i1, d2, i2) with indices offset by base."""
@@ -347,7 +342,7 @@ def knn(query, query_mask, target, target_mask, k: int, tile: int = 2048):
     if k == 2:
         best = (best_d[:, 0], best_i[:, 0], best_d[:, 1], best_i[:, 1])
     for t0 in range(0, target.shape[0], tile):
-        d = sq_dist(query, target[t0 : t0 + tile])
+        d = f32ops.sq_dist(query, target[t0 : t0 + tile])
         d = torch.where(target_mask[None, t0 : t0 + tile], d, BIG)
         if k == 1:
             v, j = torch.min(d, dim=1)  # first index among equal minima
@@ -396,7 +391,7 @@ def knn2_payload(query, query_mask, target, target_mask, payload, tile: int = 81
     tile = fit_tile(target.shape[0], tile)
     best = empty_top2(query.shape[0], query.device)
     for t0 in range(0, target.shape[0], tile):
-        d = sq_dist(query, target[t0 : t0 + tile])
+        d = f32ops.sq_dist(query, target[t0 : t0 + tile])
         d = torch.where(target_mask[None, t0 : t0 + tile], d, BIG)
         best = merge_top2(best, tile_top2(d, t0))
     b1d, b1i, b2d, b2i = best

@@ -48,8 +48,7 @@ def knn_grid_sharded(mesh, grid: gm.GridMap, query: torch.Tensor, query_mask: to
                          f"over {n_shards} ranks")
     base = mesh_mod.axis_index(mesh, KF_AXIS) * slab
     Q = query.shape[0]
-    lo = torch.floor((query - reach) / cell_size).to(torch.int32)
-    hi = torch.floor((query + reach) / cell_size).to(torch.int32)
+    lo, hi = gm.candidate_bounds(query, cell_size, reach)
     # The single-device knn_grid's combos and canonical-combo mask, so a
     # collapsed axis cannot fill two candidate slots with one point here
     # either; then only the cells this rank owns.
@@ -60,9 +59,7 @@ def knn_grid_sharded(mesh, grid: gm.GridMap, query: torch.Tensor, query_mask: to
     # one needed: a clipped index of a cell owned elsewhere would alias
     # another cell's real points.
     cand = grid.pts[torch.clamp(idx8 - base, 0, slab - 1)]  # [Q, 8, K, 3]
-    diff = cand - query[:, None, None, :]
-    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
-    d2 = torch.where(mine[:, :, None], d2, voxel.BIG)
+    d2 = torch.where(mine[:, :, None], gm.candidate_sq_dist(cand, query), voxel.BIG)
     d_local, nn_local = voxel.argmin_topk(d2.reshape(Q, -1), k, cand.reshape(Q, -1, 3))
     all_d = mesh_mod.all_gather(d_local, mesh, KF_AXIS).movedim(0, 1).reshape(Q, -1)
     all_nn = mesh_mod.all_gather(nn_local, mesh, KF_AXIS).movedim(0, 1).reshape(Q, -1, 3)

@@ -13,7 +13,9 @@ frame. The batched entries (each kernel under torch.func.vmap, one launch
 for all problems) equal a launch a problem bit for bit, since every
 problem runs the same code in its own blocks or cluster, and meet the
 same tolerances against the plain version; multiseq.frame_batch on the
-card launches each kernel once a batched frame.
+card launches each kernel once a batched frame. The rounding kernels
+(csrc/f32ops.cu: sq_dist, sum3_sq, atan2) equal their plain versions bit
+for bit, on the card and on the CPU, and vmapped in one launch.
 """
 
 import dataclasses
@@ -333,3 +335,52 @@ def test_frame_batch_on_card_tracks_cpu_with_one_launch_each(dev):
             qa = torch.where((qa * b.quat).sum(-1, keepdim=True) < 0, -qa, qa)
             assert float((qa - b.quat).abs().max()) <= 5e-4
             assert float((a.trans.cpu() - b.trans).abs().max()) <= 5e-3
+
+
+def _rounding_inputs(dev, seed):
+    """Points at a scan's ranges, integer points (exact ties) and
+    quadrant / axis / signed-zero pairs for atan2."""
+    rng = np.random.default_rng(seed)
+    T = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    pts = T(rng.uniform(-60, 60, (2, 1000, 3)))
+    ints = T(rng.integers(-6, 7, (2, 1000, 3)))
+    yx = T(rng.uniform(-100, 100, (2, 5000)))
+    yx[0, :64], yx[1, 64:128], yx[0, 128:192] = 0.0, 0.0, -0.0
+    yx[0, 192:256] *= 1e-4
+    return pts, ints, yx
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rounding_kernels_match_plain_bit_for_bit(dev, seed):
+    """csrc/f32ops.cu's sq_dist, sum3_sq and atan2 equal their plain
+    versions (ops/f32.py) bit for bit, on the card and on the CPU."""
+    from scaloam_tpu_torch.ops import f32
+    from scaloam_tpu_torch.ops.kernels import f32ops
+
+    pts, ints, yx = _rounding_inputs(dev, seed)
+    for p in (pts, ints):
+        got = f32ops.sq_dist(p[0, :300], p[1])
+        for want in (f32.sq_dist(p[0, :300], p[1]), f32.sq_dist(p[0, :300].cpu(), p[1].cpu())):
+            assert torch.equal(got.cpu().view(torch.int32), want.cpu().view(torch.int32))
+        got = f32ops.sum3_sq(p - p[:, :1])
+        assert torch.equal(got.view(torch.int32), f32.sum3_sq(p - p[:, :1]).view(torch.int32))
+    got = f32ops.atan2(yx[0], yx[1])
+    for want in (f32.atan2(yx[0], yx[1]), f32.atan2(yx[0].cpu(), yx[1].cpu())):
+        assert torch.equal(got.cpu().view(torch.int32), want.cpu().view(torch.int32))
+
+
+def test_rounding_kernels_fold_a_vmapped_batch_into_one_launch(dev):
+    """Under torch.func.vmap each rounding kernel launches once for the
+    batch, equal to a launch a problem; an unbatched argument is expanded."""
+    from scaloam_tpu_torch.ops.kernels import f32ops
+
+    pts, ints, yx = _rounding_inputs(dev, 2)
+    calls = ((f32ops.sq_dist, (pts, ints), (0, 0)), (f32ops.sq_dist, (pts, ints[0]), (0, None)),
+             (f32ops.sum3_sq, (pts,), (0,)), (f32ops.atan2, (yx, yx[1]), (0, None)))
+    for fn, args, dims in calls:
+        before = fn.launches
+        got = torch.func.vmap(fn, in_dims=dims)(*args)
+        assert fn.launches - before == 1
+        for b in range(2):
+            one = fn(*(a[b] if d == 0 else a for a, d in zip(args, dims)))
+            assert torch.equal(got[b], one)

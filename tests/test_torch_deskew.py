@@ -8,17 +8,24 @@ the JAX reference, on the CPU.
 - correspond.ring_constrained_nn / nn2 on integer coordinates with planted
   ties (duplicated targets, equal distances across tiles): distances and
   indices exactly equal, ties to the lowest index.
+- The sweep fractions (relative times) from the azimuth unwrap, equal to
+  the compiled reference's bit for bit on streams that reach each of its
+  branches.
 - A 4-frame skewed drive (tests/test_deskew.py's scene at the reduced
   HDL-64 configuration) through features + odometry_step with distortion
-  on: per-frame poses within 5e-4 (quaternion) / 5e-3 m, and the
-  republished clouds moved to the sweep's end within 5e-3 m. (That K2
-  entry A is not called there is pinned in tests/test_torch_frontend.py.)
+  on: per-frame poses within 5e-4 (quaternion) / 5e-3 m and the
+  republished clouds moved to the sweep's end within 5e-3 m; and each
+  frame's step from the reference's own state
+  (convert.odometry_state_from_numpy): its pose within 1e-5 m and the
+  republished clouds within 5e-5 m. (That K2 entry A is not called there
+  is pinned in tests/test_torch_frontend.py.)
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -29,7 +36,7 @@ from scaloam_tpu.ops import residuals as jres, se3 as jse3
 from scaloam_tpu.ops.pallas import selection as jsel
 from scaloam_tpu.types import LidarScan as JScan, Pose as JPose
 from scaloam_tpu.utils import synthetic
-from scaloam_tpu_torch import config as tconfig
+from scaloam_tpu_torch import config as tconfig, convert
 from scaloam_tpu_torch.models import odometry as todo
 from scaloam_tpu_torch.ops import correspond as tcor, features as tfeat, gn as tgn
 from scaloam_tpu_torch.ops import residuals as tres, se3 as tse3
@@ -37,6 +44,10 @@ from scaloam_tpu_torch.types import LidarScan as TScan, Pose as TPose
 
 ATOL = 1e-5
 Q_TOL, T_TOL = 5e-4, 5e-3
+# One de-skew step from the reference's state: the port ranks its 2-NN
+# candidates as the reference does, so the solve agrees to rounding and the
+# clouds moved to the sweep's end to a few float32 ulps at their range.
+STEP_T_TOL, CLOUD_TOL = 1e-5, 5e-5
 
 
 def _both(a):
@@ -231,6 +242,57 @@ def _jcfg():
     )
 
 
+def _azimuth_stream(rng, unwrapped: bool, n=256):
+    """A scan's stream of points whose azimuth sweeps from a random start
+    through a random turn, with some noise: the unwrap's branches (end
+    azimuth moved by -2 pi / +2 pi, second-half points moved by +2 pi) are
+    all reached over a few dozen streams. `unwrapped`: a turn of more than
+    pi that does not cross the -pi / pi seam (the end moved by -2 pi)."""
+    if unwrapped:
+        turn = rng.uniform(1.1 * np.pi, 1.6 * np.pi)
+        start = rng.uniform(turn - 0.9 * np.pi, np.pi)
+    else:
+        start = rng.uniform(-np.pi, np.pi)
+        turn = rng.uniform(0.5 * np.pi, 2.5 * np.pi)
+    th = start - np.linspace(0.0, turn, n) + rng.normal(0, 0.05, n)
+    r = rng.uniform(2.0, 60.0, n)
+    return np.stack([r * np.cos(th), r * np.sin(th)], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_relative_time_matches_compiled_reference_exactly(seed):
+    """Sweep fractions (the de-skew's s) equal to the reference's bit for
+    bit: its compiled code folds (a + 2 pi) +- 2 pi into a + (2 pi +- 2 pi),
+    one rounding where an eager sum rounds twice."""
+    rng = np.random.default_rng(seed)
+    scalars, rel_at = jax.jit(jfeat._azimuth_scalars), jax.jit(jfeat._relative_time_at)
+    taken = {"end-2pi": 0, "end+2pi": 0, "o2+2pi": 0}
+    for i in range(48):
+        xy = _azimuth_stream(rng, unwrapped=i % 4 == 0)
+        n = xy.shape[0]
+        xyz = np.concatenate([xy, np.zeros((n, 1), np.float32)], -1)
+        valid = rng.uniform(size=n) > 0.05
+        flip_valid = valid & (rng.uniform(size=n) > 0.05)
+        js = [np.asarray(v) for v in scalars(jnp.asarray(xyz), jnp.asarray(valid),
+                                              jnp.asarray(flip_valid))]
+        ts = tfeat._azimuth_scalars(torch.tensor(xyz), torch.tensor(valid),
+                                    torch.tensor(flip_valid))
+        for j, t in zip(js, ts):
+            np.testing.assert_array_equal(t.numpy(), j)
+        idx = rng.permutation(n).astype(np.int32)
+        jr = np.asarray(rel_at(jnp.asarray(xy[:, 0]), jnp.asarray(xy[:, 1]), jnp.asarray(idx), *js))
+        tr = tfeat._relative_time_at(torch.tensor(xy[:, 0]), torch.tensor(xy[:, 1]),
+                                     torch.tensor(idx), *ts)
+        np.testing.assert_array_equal(tr.numpy(), jr)
+        ori = -np.arctan2(xy[:, 1], xy[:, 0])
+        first, last = np.argmax(valid), n - 1 - np.argmax(valid[::-1])
+        d = ori[last] + 2 * np.pi - ori[first]
+        taken["end-2pi"] += d > 3 * np.pi
+        taken["end+2pi"] += d < np.pi
+        taken["o2+2pi"] += bool(np.any(ori + 2 * np.pi < js[1] - 1.5 * np.pi))
+    assert min(taken.values()) > 0, taken
+
+
 @pytest.fixture
 def pallas_interpret():
     orig = jsel.select_features
@@ -253,6 +315,7 @@ def test_deskew_drive_matches_reference(pallas_interpret):
     js, ts = jodo.init_state(jcfg), todo.init_state(tcfg, "cpu")
     cap = jcfg.sensor.max_points
     for i, s in enumerate(scans):
+        before = jax.tree.map(np.array, js)
         jf = jfeat.extract_features(JScan.from_numpy(s, cap), jcfg)
         tf = tfeat.extract_features(TScan.from_numpy(s, cap, "cpu"), tcfg)
         js, jo = jodo.odometry_step(js, jf, jcfg)
@@ -269,4 +332,15 @@ def test_deskew_drive_matches_reference(pallas_interpret):
         m = np.asarray(js.last_surf.mask)
         np.testing.assert_allclose(ts.last_surf.xyz.numpy()[m], np.asarray(js.last_surf.xyz)[m],
                                    atol=T_TOL, rtol=0)
+        # The step from the reference's own state: the solve and the
+        # republished clouds hold to STEP_T_TOL / CLOUD_TOL.
+        ss, so = todo.odometry_step(convert.odometry_state_from_numpy(before, "cpu"), tf, tcfg)
+        np.testing.assert_allclose(so.rel.trans.numpy(), np.asarray(jo.rel.trans), atol=STEP_T_TOL,
+                                   rtol=0, err_msg=f"frame {i} rel from the shared state")
+        for cloud in ("last_surf", "last_corner"):
+            m = np.asarray(getattr(js, cloud).mask)
+            np.testing.assert_array_equal(getattr(ss, cloud).mask.numpy(), m)
+            np.testing.assert_allclose(getattr(ss, cloud).xyz.numpy()[m],
+                                       np.asarray(getattr(js, cloud).xyz)[m], atol=CLOUD_TOL,
+                                       rtol=0, err_msg=f"frame {i} {cloud}")
     assert np.linalg.norm(np.asarray(jo.rel.trans)) > 0.3  # the drive moved

@@ -227,3 +227,75 @@ def test_matches_jax(name, seed):
             np.testing.assert_array_equal(g, w)
         else:
             np.testing.assert_allclose(g, w, atol=ATOL, rtol=0, err_msg=name)
+
+
+def test_atan2_rounds_like_the_reference():
+    """f32.atan2 equals the compiled reference's atan2 (the C library's
+    atan2f) bit for bit in every quadrant, on the axes and at signed
+    zeros; torch.atan2 rounds otherwise in a fifth of these cases."""
+    import jax
+
+    from scaloam_tpu_torch.ops import f32
+
+    rng = np.random.default_rng(3)
+    y = rng.uniform(-100, 100, 20000).astype(np.float32)
+    x = rng.uniform(-100, 100, 20000).astype(np.float32)
+    y[:100], x[100:200], y[200:300], x[300:400] = 0.0, 0.0, -0.0, 1.0
+    y[400:500] *= 1e-4
+    want = np.asarray(jax.jit(jnp.arctan2)(y, x))
+    got = f32.atan2(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_fma_f32_rounds_once_like_the_compiled_reference():
+    """f32.fma_f32 is one float32 rounding of a * b + c, as XLA's
+    contracted multiply-add: on sums whose float64 rounding lands on a
+    float32 tie the exact sum is not on (rounding to nearest twice would
+    take the tie's even side) and on random triples, equal to the compiled
+    reference's a * b + c bit for bit."""
+    import jax
+
+    from scaloam_tpu_torch.ops import f32
+
+    e = 2.0 ** -23
+    a = np.array([1 + e, 1 + e, -(1 + e), 1 + e], np.float32)
+    b = np.array([1 - e, 1 - e, 1 - e, 1 + e], np.float32)
+    c = np.array([2**24 + 2, 2**24 + 4, -(2**24 + 2), 2**24], np.float32)
+    # a * b just off half an ulp of c: the float64 sum lands on the tie
+    rng = np.random.default_rng(5)
+    n = 20000
+    k = rng.integers(0, 30, n)
+    tie_c = (np.ldexp(1.0, k + 23) + np.ldexp(2.0 * rng.integers(1, 2**20, n) + 1, k))
+    tie_a = (1 + np.ldexp(rng.integers(1, 200, n), -23)) * np.ldexp(1.0, k - 1)
+    tie_a *= rng.choice([1.0, -1.0], n)
+    tie_b = 1 - np.ldexp(rng.integers(1, 200, n), -23)
+    a, b, c = (np.concatenate([v, w, rng.uniform(-50, 50, 4000)]).astype(np.float32)
+               for v, w in ((a, tie_a), (b, tie_b), (c, tie_c)))
+    want = np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c))
+    got = f32.fma_f32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(got[:4], [2**24 + 2, 2**24 + 4, -(2**24 + 2), 2**24 + 2])
+
+
+def test_rounding_ops_on_the_cpu_are_the_plain_versions_under_vmap():
+    """kernels.f32ops on CPU tensors runs ops/f32.py's plain versions,
+    also under torch.func.vmap (no per-sample fallback) with an unbatched
+    argument; on the card the same calls launch csrc/f32ops.cu."""
+    import warnings
+
+    from scaloam_tpu_torch.ops import f32
+    from scaloam_tpu_torch.ops.kernels import f32ops
+
+    rng = np.random.default_rng(6)
+    pts = torch.tensor(rng.uniform(-60, 60, (2, 300, 3)), dtype=torch.float32)
+    yx = torch.tensor(rng.uniform(-10, 10, (2, 500)), dtype=torch.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        d = torch.func.vmap(f32ops.sq_dist, in_dims=(0, None))(pts, pts[1, :50])
+        n = torch.func.vmap(f32ops.sum3_sq)(pts)
+        t = torch.func.vmap(f32ops.atan2, in_dims=(0, None))(yx, yx[1])
+    for b in range(2):
+        assert torch.equal(d[b], f32.sq_dist(pts[b], pts[1, :50]))
+        assert torch.equal(n[b], f32.sum3_sq(pts[b]))
+        assert torch.equal(t[b], f32.atan2(yx[b], yx[1]))
+    assert f32ops.sq_dist.launches == f32ops.sum3_sq.launches == f32ops.atan2.launches == 0

@@ -25,18 +25,22 @@ import dataclasses
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
+import torch
 
 from scaloam_tpu import config as jconfig
 from scaloam_tpu.io import mulran as jmulran
 from scaloam_tpu.models import frontend as jfront, pipeline as jpipe
+from scaloam_tpu.ops import features as jfeat
 from scaloam_tpu.ops.pallas import selection as jsel
 from scaloam_tpu.types import LidarScan as JScan
 from scaloam_tpu.utils import synthetic
 from scaloam_tpu_torch import config as tconfig, run as trun
 from scaloam_tpu_torch.io import mulran as tmulran
 from scaloam_tpu_torch.models import frontend as tfront, pipeline as tpipe
+from scaloam_tpu_torch.ops import features as tfeat
 from scaloam_tpu_torch.types import LidarScan as TScan
 
 Q_TOL, T_TOL = 5e-4, 5e-3
@@ -236,3 +240,36 @@ def test_gps_scene_through_both_systems(pallas_interpret):
     # The stiff GPS weighting carries the solve's summation order to ~2e-3 m.
     np.testing.assert_allclose(ts.optimized_poses()[:, :3, 3], js.optimized_poses()[:, :3, 3],
                                atol=T_TOL, rtol=0)
+
+
+# Each sensor's ring bounds (degrees of elevation) as the reference's
+# _ring_id draws them, and its ring count.
+_RING_BOUNDS = {
+    "VLP16": (16, [2.0 * k - 16.0 for k in range(17)]),
+    "HDL32": (32, [4.0 * k / 3.0 - 92.0 / 3.0 for k in range(33)]),
+    "HDL64": (64, [2.0 - (k + 0.5) / 3.0 for k in range(33)]
+              + [-8.83 - (k + 0.5) / 2.0 for k in range(32)] + [2.0, -8.83, -24.33]),
+    "OS1-64": (64, [2.0 * k - 23.5 for k in range(25)]),
+}
+
+
+@pytest.mark.parametrize("lidar", sorted(_RING_BOUNDS))
+def test_ring_ids_on_ring_bounds_match_reference(lidar):
+    """Points whose elevation lies on a ring bound, and a few float32 ulps
+    of z around it: the ring id (and its validity) is decided by the last
+    ulp of the angle, and the port's must be the compiled reference's (its
+    C library's atan2f, `angle + c` as one fused multiply-add). The
+    synthetic OS1-64 puts whole beams on such bounds."""
+    n_scans, bounds = _RING_BOUNDS[lidar]
+    rng = np.random.default_rng(0)
+    el = np.radians(np.repeat(np.asarray(bounds), 64))
+    r = rng.uniform(5.0, 80.0, el.size)
+    az = rng.uniform(-np.pi, np.pi, el.size)
+    xyz = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np.sin(el)],
+                   -1).astype(np.float32)
+    steps = rng.integers(-3, 4, el.size)
+    xyz[:, 2] = xyz[:, 2] + steps * np.spacing(np.abs(xyz[:, 2]))
+    want = jax.jit(jfeat._ring_id, static_argnums=(1, 2))(xyz, lidar, n_scans)
+    got = tfeat._ring_id(torch.from_numpy(xyz), lidar, n_scans)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
