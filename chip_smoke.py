@@ -85,7 +85,28 @@ counts set to 0 just before it and read just after:
   same inputs (tests/data_torch_fullwidth_reference.npz, recorded on the
   CPU by tools/torch_record_reference.py): input hashes equal, then per
   drive the largest difference of each quantity within the I_*
-  tolerances below. No drive runs twice.
+  tolerances below. No drive runs twice;
+- (j) the captured programs (scaloam_tpu_torch/compiled.py: the port's
+  `jax.jit`, which every phase above runs through) against the same
+  programs eager under `compiled.disabled()`, run three times eagerly for
+  the spread: the main path's 12 frames through FrontEnd (the step to the
+  gate and the keyframe prep), the features program and K1 with its
+  inputs on the same scans; the first 32 frames of (b) through SlamSystem
+  (features, odometry, mapping, gate, keyframe prep, the 256-node
+  optimise); (h) at 8 sequences over 4 frames; (a)'s first optimise at
+  each tier. Outputs bit-equal to eager wherever the eager runs are
+  bit-equal; else integer and bool outputs equal, and the float ones of
+  (a) (whose float atomics differ run to run) held, in every run, eager
+  and captured, against the JAX recording R4 within (i)'s tolerance, any
+  other drive's within the eager runs' spread of the nearest eager run;
+  per program the ms a call, host launches, device operations and host
+  reads, eager beside captured; the peak memory of the captured (b), (h)
+  and 8192-node runs. (a)'s ticks replay captured programs, so (i) holds
+  those against the recording too. (d1)'s fused run starts its pose
+  graph at 16 nodes, so that its loop thread captures the larger tier,
+  and holds its front end until that capture has begun and the capture
+  until the front end has stepped two frames inside it; the launch
+  counts stay exact.
 
 The last three lines of standard output are the kernel table (JSON, with
 the launches of the system drive for K1 / K2 and of the main path for
@@ -105,6 +126,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -142,6 +164,9 @@ CLEAN_FRAMES = 30  # frames of the uninstrumented SlamSystem-vs-FrontEnd timing
 # (d1)/(d2) the threaded runtime over (b)'s scans.
 ASYNC_FRAMES = 48  # < the queue depth of 100, so nothing drops when fed at once
 ASYNC_ODOM_TOL_M = 1e-3
+D1_GRAPH_TIER = 16  # (d1) fused: the pose graph's first tier (nodes and loops)
+D1_OVERLAP_FRAMES = 2  # (d1) fused: front-end frames stepped inside the loop thread's capture
+D1_WAIT_S = 60.0  # (d1) fused: the longest either thread waits for the other
 SENSOR_PERIOD_S = 0.1
 # (e) de-skew: tests/test_deskew.py's scene and bounds.
 DESKEW_FRAMES = 8
@@ -184,6 +209,22 @@ H_SEQ = 8
 H_FRAMES = 4
 H_BATCHES = (1, 2, 4, 8)
 H_Q_TOL, H_T_TOL = 5e-4, 5e-3
+# (j) the captured programs against the same programs eager
+# (compiled.disabled()), run several times for the eager spread: the
+# main path's frames, the first J_SYS_FRAMES of (b), (h) at H_SEQ sequences
+# and (a)'s first optimise at each tier; the call of each program that is
+# profiled for its launches rather than timed; the CUDA runtime calls that
+# count as host launches.
+J_SYS_FRAMES = 32
+J_PROFILE_AT = 2
+# Eager runs a drive. (a)'s optimise at 4096 and 8192 nodes sums loop
+# factors sharing a node with float index_add_, so each run is a draw of
+# its own: there every run, eager and captured, is held against the JAX
+# recording (R4) instead.
+J_EAGER_RUNS = 3
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                     "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+                     "cuMemcpy", "cuMemset")
 # (i) the full-width runs held against the JAX package's runs of the same
 # configurations on the same inputs, recorded on the CPU by
 # tools/torch_record_reference.py: R1 the main path, R2 (g1)'s presets, R3
@@ -207,6 +248,25 @@ I_PGO_TOL_M = PGO_CPU_TOL_M
 
 def log(*a):
     print(*a, flush=True)
+
+
+def graph_pool_bytes(torch):
+    """The bytes the caching allocator holds in CUDA graph pools (segments
+    of a pool other than the ordinary one), or None where the snapshot
+    does not name a segment's pool."""
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def phase_wall(torch, text):
+    """Log a phase's wall time, `text`, with the memory the caching
+    allocator holds and how much of it lies in graph pools."""
+    pools = graph_pool_bytes(torch)
+    pools = "not measured" if pools is None else f"{pools / 2**30:.2f} GiB"
+    log(f"phase wall: {text} [{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+        f"graph pools {pools}]")
 
 
 def smi_line() -> str:
@@ -612,14 +672,21 @@ def compare_pose_graph(n, want_trans, got_trans):
     return d
 
 
-def count_launches(torch, fn):
-    """(fn(), CUDA kernels fn launched), under torch.profiler."""
+def launch_profile(torch, fn):
+    """(fn(), device operations it ran, host launches it made), under
+    torch.profiler: the device's kernels and copies, and the host's calls of
+    the CUDA runtime or driver that launch a kernel, a graph, a copy or a
+    fill (HOST_LAUNCH_CALLS)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum(1 for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = p.events()
+    device = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    host = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith(HOST_LAUNCH_CALLS))
+    return out, device, host
 
 
 def _launch_counts():
@@ -677,7 +744,8 @@ class SyncCounter:
 class Stage:
     """Wraps a callable: each call is timed between device syncs and its
     host syncs counted (the counter must be active). Call `profile_at` is
-    profiled for its kernel launches instead and left out of the times;
+    profiled for its device operations and host launches (launch_profile)
+    instead and left out of the times;
     a stage without one (a call that changes no state) is profiled by
     `replay` on its last call's arguments."""
 
@@ -685,13 +753,15 @@ class Stage:
         self.torch, self.name, self.fn, self.syncs = torch, name, fn, syncs
         self.profile_at = profile_at
         self.ms, self.sync_counts, self.launches, self.last = [], [], None, None
+        self.host_launches = None
         self.profiled_calls = 0  # calls of the drive that were profiled, not timed
 
     def __call__(self, *a, **k):
         torch = self.torch
         torch.cuda.synchronize()
         if self.launches is None and len(self.ms) == self.profile_at:
-            out, self.launches = count_launches(torch, lambda: self.fn(*a, **k))
+            out, self.launches, self.host_launches = launch_profile(
+                torch, lambda: self.fn(*a, **k))
             self.profiled_calls += 1
             return out
         self.last = (a, k)
@@ -707,7 +777,8 @@ class Stage:
     def replay(self):
         if self.launches is None and self.last is not None:
             a, k = self.last
-            _, self.launches = count_launches(self.torch, lambda: self.fn(*a, **k))
+            _, self.launches, self.host_launches = launch_profile(
+                self.torch, lambda: self.fn(*a, **k))
 
     def summary(self) -> dict:
         ms = np.asarray(self.ms)
@@ -716,13 +787,16 @@ class Stage:
                 "ms_median": float(np.median(ms)) if len(ms) else None,
                 "ms_max": float(ms.max()) if len(ms) else None,
                 "host_syncs_mean": float(np.mean(self.sync_counts)) if self.sync_counts else None,
-                "launches": self.launches}
+                "launches": self.launches, "host_launches": self.host_launches}
 
 
 def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
     """(a): optimise ticks on the circle chains; returns a row per tier,
     each with the positions after the first optimise ("first_trans") and
-    the chain's hash for phase (i)."""
+    the chain's hash for phase (i). A tier's first call (eager, then
+    captured) is made before the ticks and its result dropped, so every
+    tick, the first one that (i) holds against the recording included,
+    replays the captured program."""
     from scaloam_tpu_torch import config
     from scaloam_tpu_torch.models import posegraph as pg
     from scaloam_tpu_torch.types import Pose
@@ -733,7 +807,12 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
         cfg = chain_pgo_cfg(config.PGOConfig(), n, nl)
         g = build_graph(torch, pg, Pose, cfg, oq, ot, loops, dev)
         drift = ate_m(ot, gt)
-        ticks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pg.optimize(g, cfg)  # the key's first call: eager, then captured; result dropped
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        ticks = []  # replays from here on
         for tick in range(PGO_TICKS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -755,17 +834,21 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
         opt = ate_m(trans, gt)
         if not opt <= 0.5 * drift:
             raise AssertionError(f"pose graph {n}: ATE {opt:.3f} m > half the drift {drift:.3f} m")
-        _, launches = count_launches(torch, lambda: pg.optimize(g, cfg))
+        _, launches, host_launches = launch_profile(torch, lambda: pg.optimize(g, cfg))
         with SyncCounter(torch) as sc:
             pg.optimize(g, cfg)
             syncs = sc.count()
         row = {"nodes": n, "loops": nl, "woodbury": pg.uses_woodbury(n, nl, cfg),
-               "ms_per_optimise": ticks, "launches_per_optimise": launches,
+               "ms_per_optimise": ticks, "ms_first_call": capture_ms,
+               "launches_per_optimise": launches,
+               "host_launches_per_optimise": host_launches,
                "host_syncs_per_optimise": syncs, "ate_drift_m": drift, "ate_opt_m": opt,
                "first_trans": first_trans, "chain_sha256": chain_sha256(oq, ot, loops)}
         log(f"pose graph {n} nodes / {nl} loops ({'Woodbury' if row['woodbury'] else 'chain-CG'}): "
-            f"ms per optimise {[round(x, 2) for x in ticks]}, {launches} launches, "
-            f"{syncs} host syncs, ATE {drift:.4f} -> {opt:.4f} m")
+            f"ms per optimise {[round(x, 2) for x in ticks]} (replays; the key's first call, eager "
+            f"then captured, {capture_ms:.1f} ms), {launches} "
+            f"device operations and {host_launches} host launches a call, {syncs} host syncs, "
+            f"ATE {drift:.4f} -> {opt:.4f} m")
         rows.append(row)
     return rows
 
@@ -946,37 +1029,102 @@ def timed(torch, dev, fn, sink):
     return call
 
 
+@contextlib.contextmanager
+def capture_overlap(pipe):
+    """(d1) fused: the loop thread's first capture runs while the front end
+    steps. Once the pose graph has outgrown its first tier, the front end
+    waits before its next frame until that capture has begun; the capture,
+    once begun, waits until the front end has stepped D1_OVERLAP_FRAMES
+    frames begun after it. Yields {"frames_in_capture": N, "thread": the
+    capturing thread's name}."""
+    from scaloam_tpu_torch import compiled
+    from scaloam_tpu_torch.models import frontend
+    from scaloam_tpu_torch.models import posegraph as pg
+
+    seen = {"frames_in_capture": 0, "thread": None}
+    begun, stepped = threading.Event(), threading.Event()
+    step, capture = frontend.frontend_step, compiled._capture
+
+    def spy_step(*a, **k):
+        if (threading.current_thread().name == "fused_frontend_worker" and not stepped.is_set()
+                and pg.node_capacity(pipe.sys.graph) > D1_GRAPH_TIER):
+            begun.wait(D1_WAIT_S)
+        inside = begun.is_set() and not stepped.is_set()
+        out = step(*a, **k)
+        if inside:
+            seen["frames_in_capture"] += 1
+            if seen["frames_in_capture"] >= D1_OVERLAP_FRAMES:
+                stepped.set()
+        return out
+
+    def spy_capture(pool, run):
+        if threading.current_thread().name != "loop_worker" or begun.is_set():
+            return capture(pool, run)
+
+        def held():
+            seen["thread"] = threading.current_thread().name
+            begun.set()
+            stepped.wait(D1_WAIT_S)
+            return run()
+        return capture(pool, held)
+
+    frontend.frontend_step, compiled._capture = spy_step, spy_capture
+    try:
+        yield seen
+    finally:
+        frontend.frontend_step, compiled._capture = step, capture
+
+
 def async_phase(torch, dev, cfg, scans, sync_stats, counters, fused):
     """(d1): AsyncSlamPipeline over scans fed at once, held against the
     sync drive's odometry and keyframe count on the same frames; returns
-    (stats, launches)."""
+    (stats, launches). The fused run's pose graph starts at the
+    D1_GRAPH_TIER-node tier, so the loop thread captures the larger tier
+    it grows into; capture_overlap makes the front end step frames inside
+    that capture (compiled.py's thread-local capture), and the launches
+    counted stay exact."""
+    from scaloam_tpu_torch.models import posegraph as pg
+    from scaloam_tpu_torch.models.pipeline import SlamSystem
     from scaloam_tpu_torch.runtime.pipeline import AsyncSlamPipeline
 
     topo = cfg.replace(runtime=dataclasses.replace(cfg.runtime, fused_frontend=fused))
-    pipe = AsyncSlamPipeline(topo, drop_backlog=False, device=dev)
+    system = None
+    if fused:
+        system = SlamSystem(topo, device=dev)
+        system.graph = pg.init_graph(topo.pgo, dev, initial_nodes=D1_GRAPH_TIER,
+                                     initial_loops=D1_GRAPH_TIER)
+    pipe = AsyncSlamPipeline(topo, drop_backlog=False, system=system, device=dev)
     if pipe.fused != fused:
         raise AssertionError(f"async topology: fused {pipe.fused}, want {fused}")
     pipe.start()
+    captures = pg.optimize.captures
     for counter in counters:
         counter.launches = 0
-    t0 = time.perf_counter()
-    for i, pts in enumerate(scans):
-        pipe.feed(SENSOR_PERIOD_S * i, pts)
-    pipe.finish()
-    wall = time.perf_counter() - t0
+    with capture_overlap(pipe) if fused else contextlib.nullcontext() as overlap:
+        t0 = time.perf_counter()
+        for i, pts in enumerate(scans):
+            pipe.feed(SENSOR_PERIOD_S * i, pts)
+        pipe.finish()
+        wall = time.perf_counter() - t0
     launches = [c.launches for c in counters]
     n = len(scans)
+    tiers = pg.node_capacity(pipe.sys.graph)
     odom = np.stack([x for _, x in pipe.odom_results]) if pipe.odom_results else np.zeros((0, 3))
     err = float(np.abs(odom - sync_stats["odom_first"][:n]).max()) if len(odom) == n else None
     stats = {"topology": "fused" if fused else "separate", "frames": n, "wall_s": wall,
              "dropped_frames": pipe.dropped_frames, "odom_results": len(pipe.odom_results),
              "mapped_results": len(pipe.mapped_results), "keyframes": len(pipe.sys.keyframes),
              "sync_keyframes": sync_stats["keyframes_first"], "max_odom_err_m": err,
-             "workers_alive": pipe.workers_alive}
+             "workers_alive": pipe.workers_alive, "graph_nodes_capacity": tiers,
+             "optimise_tiers_captured_by_the_loop_thread": pg.optimize.captures - captures,
+             "capture_overlap": overlap}
     if not (pipe.dropped_frames == 0 and len(pipe.odom_results) == n
             and len(pipe.mapped_results) == n and pipe.workers_alive == 0
             and len(pipe.sys.keyframes) == sync_stats["keyframes_first"]
-            and err is not None and err <= ASYNC_ODOM_TOL_M):
+            and err is not None and err <= ASYNC_ODOM_TOL_M
+            and (not fused or (stats["optimise_tiers_captured_by_the_loop_thread"] >= 1
+                               and overlap["thread"] == "loop_worker"
+                               and overlap["frames_in_capture"] >= D1_OVERLAP_FRAMES))):
         raise AssertionError(f"async {stats['topology']}: {stats}")
     return stats, launches
 
@@ -1484,12 +1632,14 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
     torch.func.vmap over those 2 problems: one launch, equal to a launch
     a problem. Returns {name: {max_abs_err, ms, eager_ms, plain_ms,
     bound_ms, bound_by, library_ms, shape}}."""
+    from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.models.frontend import FrontEnd
     from scaloam_tpu_torch.ops import f32
     from scaloam_tpu_torch.ops.kernels import f32ops
 
     fe = FrontEnd(cfg, device=dev)
-    fe.step(dev_scans[0].xyz, dev_scans[0].mask)
+    with compiled.disabled():  # a captured step's replay runs no spy
+        fe.step(dev_scans[0].xyz, dev_scans[0].mask)
     kernels = {name: getattr(f32ops, name) for name in ROUNDING_KERNELS}
     captured = {name: [] for name in ROUNDING_KERNELS}
 
@@ -1502,7 +1652,8 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
     for name in ROUNDING_KERNELS:
         setattr(f32ops, name, spy(name))
     try:
-        fe.step(dev_scans[1].xyz, dev_scans[1].mask)
+        with compiled.disabled():
+            fe.step(dev_scans[1].xyz, dev_scans[1].mask)
     finally:
         for name, fn in kernels.items():
             setattr(f32ops, name, fn)
@@ -1574,6 +1725,7 @@ def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
     (a dense map) and with every factor off: within the K2 tolerances.
     Returns {"K1" | "K2 A" | "K2 B": {max_abs_err, ms, eager_ms, plain_ms,
     bound_ms, bound_by}}."""
+    from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.models import odometry
     from scaloam_tpu_torch.models.frontend import FrontEnd
     from scaloam_tpu_torch.ops import features, se3
@@ -1687,13 +1839,14 @@ def kernel_checks(torch, dev, cfg, dev_scans, tag=""):
         return gn_odometry.gn_solve_prepared_plain(*args, **kw)
 
     fe = FrontEnd(cfg, device=dev)
-    for i in range(PREP_FRAME + 1):
-        if i == PREP_FRAME:
-            gn_odometry.gn_solve_prepared = spy
-        try:
-            fe.step(dev_scans[i].xyz, dev_scans[i].mask)
-        finally:
-            gn_odometry.gn_solve_prepared = kernel_b
+    with compiled.disabled():  # a captured step's replay runs no spy
+        for i in range(PREP_FRAME + 1):
+            if i == PREP_FRAME:
+                gn_odometry.gn_solve_prepared = spy
+            try:
+                fe.step(dev_scans[i].xyz, dev_scans[i].mask)
+            finally:
+                gn_odometry.gn_solve_prepared = kernel_b
     prep_args, prep_kw = captured[0]
     prep_args = tuple(a.clone() for a in prep_args)
     nvc, nvs = int(prep_args[5].sum()), int(prep_args[9].sum())
@@ -1735,24 +1888,31 @@ def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
     poses within MAX_TRANS_ERR_M of gt; a fired keyframe has a finite,
     non-empty cloud. Returns (ms/frame past WARM_FRAMES, launches, outputs,
     the drive in the recording's layout for phase (i))."""
+    from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.models.frontend import FrontEnd
+    from scaloam_tpu_torch.ops import features
 
     n = len(dev_scans)
     _zero_launches()
     fe = FrontEnd(cfg, device=dev)
     outs = []
     t_start = None
-    with capture_frames() as frames:
-        for i, scan in enumerate(dev_scans):
-            if i == WARM_FRAMES:
-                torch.cuda.synchronize()
-                t_start = time.perf_counter()
-            outs.append(fe.step(scan.xyz, scan.mask))
-        torch.cuda.synchronize()
+    for i, scan in enumerate(dev_scans):
+        if i == WARM_FRAMES:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        outs.append(fe.step(scan.xyz, scan.mask))
+    torch.cuda.synchronize()
     ms_frame = (time.perf_counter() - t_start) * 1e3 / (n - WARM_FRAMES)
     launches = _launch_counts()
     want = {"K1": n, "K2 A": n - 1, "K2 B": cfg.mapping.outer_iterations * n}
     _check_launches(f"{tag}front end ", launches, want)
+    # The frames' features and K1's picks for (i), from the eager features
+    # program on the same scans: a captured program's replay runs no spy
+    # ((j) holds the captured features and picks equal to the eager ones).
+    with compiled.disabled(), capture_frames() as frames:
+        for scan in dev_scans:
+            features.extract_features(scan, cfg)
     mapped = torch.stack([o.mapped_pose.trans for o in outs]).cpu().numpy()
     odom = torch.stack([o.odom_world.trans for o in outs]).cpu().numpy()
     quats = torch.stack([o.mapped_pose.quat for o in outs]).cpu().numpy()
@@ -2059,6 +2219,8 @@ def _h_batched(torch, cfg, xyz, mask):
     (0 on the first frame), K2 B outer_iterations. Returns (odometry poses
     [F, B, 7], mapped poses [F, B, 7], the odometry states after each
     frame, ms per batched frame past the first)."""
+    import torch.utils._pytree as pytree
+
     from scaloam_tpu_torch.parallel import multiseq
 
     F, B = xyz.shape[:2]
@@ -2077,7 +2239,8 @@ def _h_batched(torch, cfg, xyz, mask):
                         ROUNDING_KERNELS if f > 0 else ("sum3_sq", "atan2"))
         odom.append(_qt(o_pose, torch))
         mapped.append(_qt(m_pose, torch))
-        states.append(o)
+        # the states are donated (updated in place by the next frame)
+        states.append(pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, o))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / (F - 1)
     return torch.stack(odom), torch.stack(mapped), states, ms
@@ -2161,6 +2324,7 @@ def multiseq_phase(torch, dev, cfg, dev_scans):
     kernel entry at B = H_SEQ bit-equal to a launch a problem and held
     against its plain version. vmap's per-sample fallback warning is an
     error throughout. Returns (stats, kernel rows)."""
+    from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.ops import features
     from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
     from scaloam_tpu_torch.parallel import multiseq
@@ -2173,12 +2337,14 @@ def multiseq_phase(torch, dev, cfg, dev_scans):
         mask = torch.stack([torch.stack([dev_scans[s + f].mask for s in range(H_SEQ)])
                             for f in range(H_FRAMES)])
         capture = {"K2 A": [], "K2 B": []}
-        want_o, want_m, want_c, _ = _h_loop(torch, cfg, xyz, mask, capture)
+        with compiled.disabled():  # a captured step's replay runs no spy
+            want_o, want_m, want_c, _ = _h_loop(torch, cfg, xyz, mask, capture)
+        _h_loop(torch, cfg, xyz, mask)  # captures the stages' programs
         _, _, _, loop_ms = _h_loop(torch, cfg, xyz, mask)
 
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        got_o, got_m, states, ms8 = _h_batched(torch, cfg, xyz, mask)
+        got_o, got_m, states, _ = _h_batched(torch, cfg, xyz, mask)
         peak = torch.cuda.max_memory_allocated(dev)
         for f, (o, row) in enumerate(zip(states, want_c)):
             for s, (corner, surf) in enumerate(row):
@@ -2204,15 +2370,19 @@ def multiseq_phase(torch, dev, cfg, dev_scans):
         if not moved > 1.0:
             raise AssertionError(f"(h) the sequences did not move ({moved:.3f} m)")
 
-        ms_batched = {H_SEQ: ms8}
+        # Timed on replays: a drive at each batch size captures its programs
+        # first (at H_SEQ, the drive above).
+        ms_batched = {}
         for B in H_BATCHES:
+            sub = xyz[:, :B].contiguous(), mask[:, :B].contiguous()
             if B != H_SEQ:
-                ms_batched[B] = _h_batched(torch, cfg, xyz[:, :B].contiguous(),
-                                           mask[:, :B].contiguous())[3]
+                _h_batched(torch, cfg, *sub)
+            ms_batched[B] = _h_batched(torch, cfg, *sub)[3]
         log("(h) ms per batched frame (frames 1-3): " + ", ".join(
             f"B={B} {ms_batched[B]:.2f} ({ms_batched[B] / B:.2f} a sequence)"
             for B in H_BATCHES) + f"; the loop over {H_SEQ} sequences {loop_ms:.2f} "
-            f"({loop_ms / H_SEQ:.2f} a sequence), {loop_ms / ms8:.2f}x the batched B={H_SEQ}")
+            f"({loop_ms / H_SEQ:.2f} a sequence), {loop_ms / ms_batched[H_SEQ]:.2f}x the "
+            f"batched B={H_SEQ}; captured programs, timed on replays")
         profiled = {B: _h_profile(torch, cfg, xyz[:, :B], mask[:, :B]) for B in (1, H_SEQ)}
         for B, pr in profiled.items():
             log(f"(h) one batched frame of B={B} under the profiler: wall {pr['wall_ms']:.2f} ms, "
@@ -2302,6 +2472,259 @@ def multiseq_phase(torch, dev, cfg, dev_scans):
         row["launches"] = launches[key]
     return stats, rows
 
+# ---- (j): the captured programs against eager
+
+
+def _j_runs(torch, drive, eager=J_EAGER_RUNS):
+    """drive(syncs, profile_at) -> (tensors, {program: Stage}), run eagerly
+    `eager` times ("eager", "eager 2", ...), then captured, each under the
+    sync counter; the first eager run and the captured one profile a call
+    of each program. Returns {mode: result}."""
+    from scaloam_tpu_torch import compiled
+
+    runs = {}
+    for mode in ["eager"] + [f"eager {i}" for i in range(2, eager + 1)] + ["captured"]:
+        with contextlib.ExitStack() as ctx:
+            if mode != "captured":
+                ctx.enter_context(compiled.disabled())
+            syncs = ctx.enter_context(SyncCounter(torch))
+            runs[mode] = drive(syncs, J_PROFILE_AT if mode in ("eager", "captured") else None)
+        torch.cuda.synchronize()
+    return runs
+
+
+def _bits(torch, x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _fdiff(torch, a, b) -> float:
+    """Largest |a - b|, 0 where both are the same NaN, inf where one is."""
+    d = (a.double() - b.double()).abs()
+    same = torch.eq(_bits(torch, a), _bits(torch, b))
+    return float(torch.where(same, 0.0, d.nan_to_num(nan=float("inf"))).max()) if d.numel() else 0.0
+
+
+def j_compare(torch, label, runs, held_by=None):
+    """The captured run's tensors against the eager runs' ({mode: list}):
+    where the eager runs are bit-equal throughout the drive, the captured
+    run bit-equal to them. Otherwise (float atomics: `index_add_` over
+    colliding rows makes each eager run a draw of its own) every integer
+    and bool tensor equal to the first eager run's, and the float ones
+    held by the check `held_by` names, which the caller makes; without one,
+    the captured run's largest float difference from its nearest eager run
+    within the largest difference between two eager runs (the spread).
+    Returns the tensors compared, how many are bit-equal to the first
+    eager run, the largest difference from the nearest eager run, the
+    spread and `held_by`."""
+    cap, eager = runs["captured"], [x for m, x in runs.items() if m != "captured"]
+    if not (len(cap) > 0 and all(len(e) == len(cap) for e in eager)):
+        raise AssertionError(f"(j) {label}: {len(cap)} tensors, eager {[len(e) for e in eager]}")
+    same = lambda a, b: torch.equal(_bits(torch, a), _bits(torch, b))
+    largest = lambda xs, ys: max((_fdiff(torch, a, b) for a, b in zip(xs, ys)
+                                  if a.is_floating_point()), default=0.0)
+    eager_equal = all(same(a, b) for e in eager[1:] for a, b in zip(eager[0], e))
+    spread = max(largest(a, b) for i, a in enumerate(eager) for b in eager[i + 1:])
+    n_equal = 0
+    for i, (c, a) in enumerate(zip(cap, eager[0])):
+        if c.shape != a.shape or c.dtype != a.dtype:
+            raise AssertionError(f"(j) {label}: tensor {i} is {c.dtype} {tuple(c.shape)}, "
+                                 f"eager {a.dtype} {tuple(a.shape)}")
+        if same(c, a):
+            n_equal += 1
+        elif eager_equal or not c.is_floating_point():
+            raise AssertionError(f"(j) {label}: tensor {i} ({c.dtype} {tuple(c.shape)}) differs "
+                                 f"from eager, and the eager runs agree on it")
+    nearest = min(largest(cap, e) for e in eager)
+    if held_by is None and nearest > spread:
+        raise AssertionError(f"(j) {label}: {nearest:.3e} from the nearest eager run, past the "
+                             f"eager runs' spread {spread:.3e}")
+    return {"tensors": len(cap), "bit_equal": n_equal, "max_diff": nearest,
+            "eager_spread": spread, "eager_runs_bit_equal": eager_equal,
+            "floats_held_by": None if eager_equal else held_by or "the eager spread"}
+
+
+def _tensors(torch, tree):
+    import torch.utils._pytree as pytree
+
+    return [x for x in pytree.tree_leaves(tree) if torch.is_tensor(x)]
+
+
+def _j_frontend(torch, dev, cfg, dev_scans):
+    """The main path's frames through FrontEnd (the step to the gate and the
+    keyframe prep), then the features program and K1 (with its inputs) on
+    the same scans."""
+    from scaloam_tpu_torch import compiled
+    from scaloam_tpu_torch.models.frontend import FrontEnd
+    from scaloam_tpu_torch.ops import features
+    from scaloam_tpu_torch.ops.kernels import selection
+
+    feat = cfg.features
+
+    def k1(scan):
+        si = features.selection_inputs(scan, cfg)
+        return selection.select_features(
+            si.curv, si.left_ext, si.right_ext, si.eligible, si.sp, si.ep,
+            n_sub=feat.n_subregions, n_corner=feat.less_sharp_per_subregion,
+            n_flat=feat.flat_per_subregion, curv_thr=feat.curvature_threshold)
+
+    picks = compiled.jit(k1)
+
+    def drive(syncs, profile_at):
+        fe = FrontEnd(cfg, device=dev)
+        progs = {"front end frame": fe.step,
+                 "features": lambda s: features.extract_features(s, cfg),
+                 "K1 and its inputs": picks}
+        progs = {k: Stage(torch, k, fn, syncs, profile_at) for k, fn in progs.items()}
+        outs = [progs["front end frame"](s.xyz, s.mask) for s in dev_scans]
+        feats = [progs["features"](s) for s in dev_scans]
+        k1_out = [progs["K1 and its inputs"](s) for s in dev_scans]
+        return {"front end": _tensors(torch, outs), "features": _tensors(torch, feats),
+                "K1 picks": _tensors(torch, k1_out)}, progs
+
+    return _j_runs(torch, drive)
+
+
+def _j_system(torch, dev, cfg, scans):
+    """The first J_SYS_FRAMES of (b) through SlamSystem: the sync driver's
+    stage programs, the gate, the keyframe prep and the optimise at the
+    graph's first tier, each call timed."""
+    from scaloam_tpu_torch.models import mapping, odometry, pipeline, posegraph
+    from scaloam_tpu_torch.ops import features
+
+    names = (("features", features, "extract_features"),
+             ("odometry", odometry, "odometry_step"), ("mapping", mapping, "mapping_step"),
+             ("gate", pipeline, "gate_step"), ("keyframe prep", pipeline, "_prepare_keyframe"),
+             ("optimise", posegraph, "optimize"))
+
+    def drive(syncs, profile_at):
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        s = pipeline.SlamSystem(cfg, device=dev)
+        progs = {name: Stage(torch, name, getattr(mod, attr), syncs, profile_at)
+                 for name, mod, attr in names}
+        for name, mod, attr in names:
+            setattr(mod, attr, progs[name])
+        try:
+            results = [s.process_scan(pts, time=0.1 * i) for i, pts in enumerate(scans)]
+        finally:
+            for name, mod, attr in names:
+                setattr(mod, attr, progs[name].fn)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        out = [x for r in results for x in (r.odom_pose.quat, r.odom_pose.trans,
+                                            r.mapped_pose.quat, r.mapped_pose.trans)]
+        out.append(torch.tensor([r.is_keyframe for r in results]))
+        out += [torch.from_numpy(np.asarray(kf.cloud)) for kf in s.keyframes]
+        out += [torch.from_numpy(np.asarray(kf.intensity)) for kf in s.keyframes]
+        out.append(torch.from_numpy(s.optimized_poses()))
+        out.append(torch.tensor(s.loops_found or [(-1, -1)]))
+        return {"system": out, "peak": peak}, progs
+
+    return _j_runs(torch, drive)
+
+
+def _j_batch(torch, cfg, xyz, mask):
+    """(h)'s H_SEQ sequences over H_FRAMES frames through
+    multiseq.frame_batch: poses each frame and the final stacked states."""
+    from scaloam_tpu_torch.parallel import multiseq
+
+    def drive(syncs, profile_at):
+        torch.cuda.reset_peak_memory_stats(xyz.device)
+        base = torch.cuda.memory_allocated(xyz.device)
+        o, m = multiseq.init_states(xyz.shape[1], cfg, xyz.device)
+        prog = Stage(torch, "frame_batch", lambda *a: multiseq.frame_batch(*a, cfg), syncs,
+                     profile_at)
+        poses = []
+        for f in range(xyz.shape[0]):
+            o, m, op, mp = prog(o, m, xyz[f], mask[f])
+            poses += [op.quat.clone(), op.trans.clone(), mp.quat.clone(), mp.trans.clone()]
+        peak = torch.cuda.max_memory_allocated(xyz.device) - base
+        return {"batch": poses + _tensors(torch, (o, m)), "peak": peak}, {"frame_batch": prog}
+
+    return _j_runs(torch, drive)
+
+
+def _j_optimise(torch, dev, tiers=PGO_TIERS):
+    """(a)'s first optimise at each tier on its circle chain; returns
+    (the runs, per tier every run's largest position difference from the
+    JAX recording R4, which must lie within I_PGO_TOL_M)."""
+    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch.models import posegraph as pg
+    from scaloam_tpu_torch.types import Pose
+
+    _, arrays = load_reference()
+    chains = []
+    for n, nl in tiers:
+        _, oq, ot, loops = circle_chain(n, nl, seed=n)
+        want = drive_arrays(arrays, f"R4.{n}")
+        check_hashes(f"(j) R4.{n}", [want["chain_sha256"]], [chain_sha256(oq, ot, loops)])
+        cfg = chain_pgo_cfg(config.PGOConfig(), n, nl)
+        chains.append((n, cfg, build_graph(torch, pg, Pose, cfg, oq, ot, loops, dev),
+                       want["trans"]))
+
+    def drive(syncs, profile_at):
+        out, progs = {}, {}
+        for n, cfg, g, _ in chains:
+            prog = progs[f"optimise {n}"] = Stage(
+                torch, f"optimise {n}", lambda g, cfg=cfg: pg.optimize(g, cfg), syncs,
+                None if profile_at is None else 1)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            got = prog(g)
+            out[f"optimise {n}"] = _tensors(torch, got)
+            out[f"positions {n}"] = got.poses.trans.cpu().numpy()
+            out[f"peak {n}"] = torch.cuda.max_memory_allocated(dev) - base
+            if profile_at is not None:  # the second call is profiled
+                prog(g)
+        return out, progs
+
+    runs = _j_runs(torch, drive)
+    recording = {}
+    for n, _, _, want in chains:
+        d = {m: float(np.abs(run[0][f"positions {n}"] - want).max()) for m, run in runs.items()}
+        if not max(d.values()) <= I_PGO_TOL_M:
+            raise AssertionError(f"(j) optimise {n}: positions from the recording {d} m "
+                                 f"(tol {I_PGO_TOL_M})")
+        recording[n] = d
+    return runs, recording
+
+
+def captured_phase(torch, dev, cfg, dev_scans, sys_cfg, sys_scans):
+    """(j): every captured program against itself eager, over the main
+    path's frames, (b)'s first J_SYS_FRAMES, (h) at H_SEQ sequences and (a)'s
+    tiers: outputs held by j_compare, per program the ms a call, host
+    launches, device operations and host reads, eager beside captured, and
+    the peak memory above what was held before each of the (b), (h) and
+    (a) drives."""
+    xyz = torch.stack([torch.stack([dev_scans[s + f].xyz for s in range(H_SEQ)])
+                       for f in range(H_FRAMES)])
+    mask = torch.stack([torch.stack([dev_scans[s + f].mask for s in range(H_SEQ)])
+                        for f in range(H_FRAMES)])
+    drives = {"main path": _j_frontend(torch, dev, cfg, dev_scans),
+              "(b)": _j_system(torch, dev, sys_cfg, sys_scans[:J_SYS_FRAMES]),
+              "(h)": _j_batch(torch, cfg, xyz, mask)}
+    drives["(a)"], recording = _j_optimise(torch, dev)
+    held_by = {"(a)": "every run's positions within I_PGO_TOL_M of the JAX recording (R4)"}
+    stats = {"outputs": {}, "programs": {}, "peak_bytes": {}, "a_from_recording_m": recording}
+    for drive, runs in drives.items():
+        for key, value in runs["captured"][0].items():
+            if key.startswith("peak"):
+                stats["peak_bytes"][f"{drive} {key}"] = {m: runs[m][0][key]
+                                                         for m in ("eager", "captured")}
+                continue
+            if key.startswith("positions"):
+                continue
+            stats["outputs"][f"{drive} {key}"] = j_compare(
+                torch, f"{drive} {key}", {m: run[0][key] for m, run in runs.items()},
+                held_by.get(drive))
+        for name in runs["captured"][1]:
+            stats["programs"][f"{drive} {name}"] = {m: runs[m][1][name].summary()
+                                                    for m in ("eager", "captured")}
+    stats["reserved_bytes"] = torch.cuda.memory_reserved(dev)
+    stats["graph_pool_bytes"] = graph_pool_bytes(torch)
+    stats["eager_runs"] = J_EAGER_RUNS
+    return stats
+
 
 def reference_phase(main_record, g1, g2, pgo_rows):
     """(i): the outputs the earlier phases produced (the main path, (g1),
@@ -2386,7 +2809,7 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
         f"in {time.perf_counter() - t0:.1f} s")
 
     rows = kernel_checks(torch, dev, cfg, dev_scans)
-    log(f"phase wall: build and kernel checks {time.perf_counter() - t_checks:.1f} s")
+    phase_wall(torch, f"build and kernel checks {time.perf_counter() - t_checks:.1f} s")
 
     # ---- main path: the full-width front end, launches counted
     t_phase = time.perf_counter()
@@ -2395,12 +2818,12 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     main_record["scan_sha256"] = [sha256_f32(x) for x in scans]
     kf_out = next(o for o in outs if bool(o.fire))
     kf_cloud = (kf_out.kf_xyz, kf_out.kf_mask)  # for (g3)
-    log(f"phase wall: front end {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"front end {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (a) the pose graph at users' sizes
     t_phase = time.perf_counter()
     pgo_rows = pose_graph_phase(torch, dev)
-    log(f"phase wall: (a) pose graph {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(a) pose graph {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (b) the system over the 160-frame loop drive, launches counted
     t_phase = time.perf_counter()
@@ -2435,9 +2858,10 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
                           "system_keyframe_ms": kf_ms.tolist(), "frontend_ms": fe_ms.tolist()}
     log(f"uninstrumented, frames 2-{CLEAN_FRAMES - 1} of the drive: SlamSystem non-keyframe "
         f"median {np.median(non_kf):.2f} ms ({len(non_kf)} frames), keyframe median "
-        f"{np.median(kf_ms):.2f} ms ({len(kf_ms)}); FrontEnd.step + upload median "
-        f"{np.median(fe_ms):.2f} ms")
-    log(f"phase wall: (b) system {time.perf_counter() - t_drive:.1f} s")
+        f"{np.median(kf_ms):.2f} ms ({len(kf_ms)}), all frames mean "
+        f"{np.mean(np.concatenate([non_kf, kf_ms])):.2f} ms (a keyframe's optimise runs on "
+        f"after its frame returns); FrontEnd.step + upload median {np.median(fe_ms):.2f} ms")
+    phase_wall(torch, f"(b) system {time.perf_counter() - t_drive:.1f} s")
 
     # ---- (c) the CLI, then resumed
     t_phase = time.perf_counter()
@@ -2445,7 +2869,7 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     log(f"cli: {json.dumps(cli[0])}")
     log(f"cli resumed: {json.dumps(cli[1])}")
     log(f"cli --async-pipeline: {json.dumps(cli[2])}")
-    log(f"phase wall: (c) CLI {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(c) CLI {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (d1) the threaded runtime, both topologies, against (b)
     want = {"K1": ASYNC_FRAMES, "K2 A": ASYNC_FRAMES - 1,
@@ -2457,7 +2881,7 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
         if got != want:
             raise AssertionError(f"async {st['topology']} launches {got}, want {want}")
         log(f"(d1) async {st['topology']}: {json.dumps(st)}, launches {got}")
-        log(f"phase wall: (d1) async {st['topology']} {time.perf_counter() - t_phase:.1f} s")
+        phase_wall(torch, f"(d1) async {st['topology']} {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (d2) the fused runtime at the sensor's rate over the whole drive
     t_phase = time.perf_counter()
@@ -2468,14 +2892,14 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
         f"(first {rt['optimise_ms_first']:.1f} ms, median {rt['optimise_ms_median']:.1f} ms), "
         f"ICP {rt['icp_calls']} calls, loops {len(rt['loops'])}, ATE {rt['ate_opt_m']:.4f} m, "
         f"gate_wait {rt['stage_busy_s']['gate_wait']:.2f} s")
-    log(f"phase wall: (d2) real time {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(d2) real time {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (e) de-skew on skewed full-width frames
     t_phase = time.perf_counter()
     sk_scans, sk_gt = skewed.get()
     dk = deskew_phase(torch, dev, sk_scans, sk_gt, counters)
     log(f"(e) de-skew: {json.dumps(dk)} (launches K1, K2 A, K2 B)")
-    log(f"phase wall: (e) de-skew {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(e) de-skew {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (f) the multi-device layer: (f1) a world of one over NCCL here,
     # (f2) ranks on the one card over gloo, run beside (f3) the backend device
@@ -2483,7 +2907,7 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     dev0 = torch.device("cuda", 0)
     single, f1, wait_f2 = multidevice_phase(torch, dev0, os.getcwd(), sys_stats, scans)
     log(f"(f1) {json.dumps(f1)}")
-    log(f"phase wall: (f1) and (f2)'s start {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(f1) and (f2)'s start {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     try:
         f3 = backend_device_phase(torch, dev0, os.getcwd(), sys_cfg, scans,
@@ -2492,13 +2916,13 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
         outs, f2_wall = wait_f2()
     log(f"(f3) {json.dumps(f3)}")
     log(f"(f3) launches K1 / K2 A / K2 B {f3['launches']}")
-    log(f"phase wall: (f3) backend device {time.perf_counter() - t_phase:.1f} s "
+    phase_wall(torch, f"(f3) backend device {time.perf_counter() - t_phase:.1f} s "
         f"(beside (f2))")
     for key, row in check_f2(torch, single, outs).items():
         log(f"(f2) world/rank {key}: {json.dumps(row)}")
         log(f"(f2) world/rank {key}: launches K1 / K2 A / K2 B {row['launches']} for "
             f"{row['local_sequences']} sequence(s) of {F_SEQ_FRAMES} frames")
-    log(f"phase wall: (f2) ranks {f2_wall:.1f} s from their start")
+    phase_wall(torch, f"(f2) ranks {f2_wall:.1f} s from their start")
 
     # ---- (g) the other presets at full width, the README's MulRan usage,
     # the map clouds and the generic voxel filter
@@ -2506,7 +2930,7 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     g1 = {}
     for (name, _), (p_scans, p_gt) in zip(G_PRESETS, presets.get()):
         g1[name] = preset_phase(torch, dev, name, p_scans, p_gt)
-    log(f"phase wall: (g1) presets {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(g1) presets {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     g2 = mulran_cli_phase(torch, os.getcwd(), mulran.get(), counters)
     log(f"(g2) {json.dumps({k: v for k, v in g2.items() if k != 'record'})}")
@@ -2518,24 +2942,53 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
         f"{g2['ms_per_frame_non_keyframe_median']}; optimise {g2['optimise_calls']} calls "
         f"(first {g2['optimise_ms_first']:.1f} ms, median {g2['optimise_ms_median']:.1f} ms) "
         f"at tiers (nodes, loops, solver) {g2['optimise_tiers']}")
-    log(f"phase wall: (g2) MulRan CLI {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(g2) MulRan CLI {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     g3 = mapcloud_phase(torch, dev, sys_stats["system"], kf_cloud)
     log(f"(g3) {json.dumps(g3)}")
-    log(f"phase wall: (g3) map clouds and voxel filter {time.perf_counter() - t_phase:.1f} s; "
+    phase_wall(torch, f"(g3) map clouds and voxel filter {time.perf_counter() - t_phase:.1f} s; "
         f"(g) {time.perf_counter() - t_g:.1f} s")
 
     # ---- (h) the batched multi-sequence front end over the main path's frames
     t_phase = time.perf_counter()
     h_stats, h_rows = multiseq_phase(torch, dev, cfg, dev_scans)
     log(f"(h) {json.dumps(h_stats)}")
-    log(f"phase wall: (h) batched multi-sequence front end {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(h) batched multi-sequence front end {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (j) the captured programs against eager
+    t_phase = time.perf_counter()
+    j = captured_phase(torch, dev, cfg, dev_scans, sys_cfg, scans)
+    for name, row in j["outputs"].items():
+        spread = ("bit-equal" if row["eager_runs_bit_equal"]
+                  else f"apart by {row['eager_spread']:.3e}; floats held by "
+                       f"{row['floats_held_by']}")
+        log(f"(j) {name}: {row['tensors']} tensors, {row['bit_equal']} bit-equal to eager, "
+            f"largest difference {row['max_diff']:.3e} (eager runs {spread})")
+    for n, row in j["a_from_recording_m"].items():
+        log(f"(j) (a) optimise {n}: positions from the JAX recording R4, per run (m): "
+            f"{json.dumps(row)} (tol {I_PGO_TOL_M})")
+    for name, row in j["programs"].items():
+        e, c = row["eager"], row["captured"]
+        log(f"(j) {name}: ms a call eager {e['ms_median']:.3f} / captured {c['ms_median']:.3f} "
+            f"(medians, {e['calls']} calls, one profiled); host launches "
+            f"{e['host_launches']} / {c['host_launches']}, device operations {e['launches']} / "
+            f"{c['launches']}, host reads a call {e['host_syncs_mean']:.2f} / "
+            f"{c['host_syncs_mean']:.2f}")
+    for name, row in j["peak_bytes"].items():
+        log(f"(j) {name} memory above what was held before: "
+            + ", ".join(f"{m} {v / 2**30:.3f} GiB" for m, v in row.items()))
+    pools = j["graph_pool_bytes"]
+    log(f"(j) memory reserved by the caching allocator: {j['reserved_bytes'] / 2**30:.3f} GiB, "
+        f"of it in graph pools: "
+        f"{'not measured' if pools is None else f'{pools / 2**30:.3f} GiB'}")
+    log(f"(j) {json.dumps(j)}")
+    phase_wall(torch, f"(j) captured against eager {time.perf_counter() - t_phase:.1f} s")
 
     # ---- (i) the full-width runs above against the recorded JAX runs
     t_phase = time.perf_counter()
     ref = reference_phase(main_record, g1, g2, pgo_rows)
     log(f"(i) {json.dumps(ref)}")
-    log(f"phase wall: (i) against the recorded JAX runs {time.perf_counter() - t_phase:.1f} s")
+    phase_wall(torch, f"(i) against the recorded JAX runs {time.perf_counter() - t_phase:.1f} s")
     log(f"script wall: {time.perf_counter() - t_script:.1f} s")
 
     gn_src = "scaloam_tpu_torch/csrc/gn_odometry.cu"

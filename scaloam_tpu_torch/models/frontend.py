@@ -3,9 +3,11 @@ gate, plus the keyframe-cloud voxel prep on frames where the gate fires
 (counterpart of scaloam_tpu/models/frontend.py).
 
 `FrontEnd(cfg, device=None)` holds the state and is the entry point;
-`frontend_step` is the pure step on explicit state. The gate flag is read
-back to the host once per frame to decide whether to run the keyframe
-prep (the reference's `lax.cond`): the one device-to-host sync per frame.
+`frontend_step` is the step on explicit state (donated, as in the
+reference). On the card it runs as two captured programs (compiled.py):
+the step up to the gate, and the keyframe prep. The gate flag is read
+back to the host between them to decide whether to run the prep (the
+reference's `lax.cond`): the one device-to-host sync per frame.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from scaloam_tpu_torch import device as _device
+from scaloam_tpu_torch import compiled, device as _device
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.models import mapping as mapping_mod
 from scaloam_tpu_torch.models import odometry as odometry_mod
@@ -49,8 +51,10 @@ def init_state(cfg: SlamConfig, device=None) -> FrontendState:
     )
 
 
-def frontend_step(state: FrontendState, scan: LidarScan, cfg: SlamConfig):
-    """Process one raw scan; returns (new_state, FrontendOutput)."""
+@compiled.jit(static_argnames=("cfg",), donate_argnums=(0,))
+def _step_body(state: FrontendState, scan: LidarScan, cfg: SlamConfig):
+    """The step up to the gate: returns (new_state, (odometry pose, mapped
+    pose, fire, degenerate, the range image's xyz, mask and rel_time))."""
     feats = features.extract_features(scan, cfg)
     o_state, o_out = odometry_mod.odometry_step(state.o, feats, cfg)
     # Mapping consumes odometry's republished clouds (post-step last_*).
@@ -62,21 +66,27 @@ def frontend_step(state: FrontendState, scan: LidarScan, cfg: SlamConfig):
         float(cfg.pgo.keyframe_meter_gap), float(cfg.pgo.keyframe_deg_gap),
     )
     full = feats.full
+    return FrontendState(o=o_state, m=m_state, gate=gate), (
+        o_out.world, m_out.pose, fire, o_out.degenerate, full.xyz, full.mask, full.rel_time)
+
+
+def frontend_step(state: FrontendState, scan: LidarScan, cfg: SlamConfig):
+    """Process one raw scan; returns (new_state, FrontendOutput). The
+    state is donated: on the card its tensors are updated in place."""
+    state, (odom_world, mapped_pose, fire, degenerate, ri_xyz, ri_mask, ri_time) = (
+        _step_body(state, scan, cfg))
     if bool(fire):  # device -> host read of the gate flag
-        kf_xyz, kf_mask, kf_ext = pipeline_mod._prepare_keyframe(
-            full.xyz, full.mask, full.rel_time, cfg
-        )
+        kf_xyz, kf_mask, kf_ext = pipeline_mod._prepare_keyframe(ri_xyz, ri_mask, ri_time, cfg)
     else:
         # The prep's output length: its capacity, bounded by the input size.
-        n = min(cfg.pgo.keyframe_cloud_capacity, full.mask.numel())
-        dev = full.xyz.device
+        n = min(cfg.pgo.keyframe_cloud_capacity, ri_mask.numel())
+        dev = ri_xyz.device
         kf_xyz = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         kf_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
         kf_ext = torch.zeros((n, 1), dtype=torch.float32, device=dev)
-    new_state = FrontendState(o=o_state, m=m_state, gate=gate)
-    return new_state, FrontendOutput(
-        odom_world=o_out.world, mapped_pose=m_out.pose, fire=fire,
-        degenerate=o_out.degenerate, kf_xyz=kf_xyz, kf_mask=kf_mask, kf_ext=kf_ext,
+    return state, FrontendOutput(
+        odom_world=odom_world, mapped_pose=mapped_pose, fire=fire,
+        degenerate=degenerate, kf_xyz=kf_xyz, kf_mask=kf_mask, kf_ext=kf_ext,
     )
 
 

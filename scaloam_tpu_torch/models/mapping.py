@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from scaloam_tpu_torch import device as _device
+from scaloam_tpu_torch import compiled, device as _device
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.ops import fit, gridmap, se3, voxel
 from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry
@@ -95,6 +95,7 @@ def _surf_correspond(pose: Pose, pts, pmask, nb8, mcfg):
     return unit_n, neg_d, ok_nn & ok_fit & planar
 
 
+@compiled.jit(static_argnames=("cfg",), donate_argnums=(0,))
 def mapping_step(state: MappingState, odom_pose: Pose, corner_cloud: FeatureCloud,
                  surf_cloud: FeatureCloud, cfg: SlamConfig):
     """Returns (new_state, MappingOutput)."""

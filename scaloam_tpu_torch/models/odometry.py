@@ -22,7 +22,7 @@ from typing import NamedTuple, Union
 
 import torch
 
-from scaloam_tpu_torch import device as _device
+from scaloam_tpu_torch import compiled, device as _device
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.ops import correspond, gn, residuals, se3, voxel
 from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry
@@ -183,6 +183,7 @@ def _to_end(rel: Pose, fc: FeatureCloud) -> FeatureCloud:
     return fc._replace(xyz=se3.apply(se3.inverse(rel), p_start))
 
 
+@compiled.jit(static_argnames=("cfg",))
 def odometry_step(state: OdometryState, feats: ScanFeatures, cfg: SlamConfig):
     """Process one feature frame; returns (new_state, OdometryOutput)."""
     ocfg = cfg.odometry

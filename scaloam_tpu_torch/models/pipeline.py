@@ -28,7 +28,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from scaloam_tpu_torch import device as _device
+from scaloam_tpu_torch import compiled, device as _device
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.models import mapping as mapping_mod
 from scaloam_tpu_torch.models import odometry as odometry_mod
@@ -60,6 +60,7 @@ def init_gate_state(device=None) -> GateState:
     )
 
 
+@compiled.jit(static_argnames=("meter_gap", "deg_gap"))
 def gate_step(gs: GateState, quat, trans, meter_gap: float, deg_gap: float):
     """One keyframe-gate update; returns (new_state, fire bool scalar).
     The first frame always fires; firing resets both accumulators."""
@@ -79,6 +80,7 @@ def gate_step(gs: GateState, quat, trans, meter_gap: float, deg_gap: float):
     return new, fire
 
 
+@compiled.jit(static_argnames=("cfg",))
 def _prepare_keyframe(ri_xyz, ri_mask, ri_rel_time, cfg: SlamConfig):
     """The keyframe cloud: the full-res local range image, 0.4 m voxel
     filtered, with the intensity channel (ring + scan_period * relTime)

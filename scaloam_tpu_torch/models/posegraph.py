@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.config import PGOConfig
 from scaloam_tpu_torch.ops import blocktri, se3
 from scaloam_tpu_torch.types import Pose
@@ -369,7 +370,7 @@ def _chain_factor_blocks(B_chain, D_blocks, damp, free_mask):
     D_chain = D_blocks + damp[:, :, None] * eye6 + 1e-6 * eye6
     D_chain = torch.where(free_mask[:, None, None], D_chain, eye6)
     pair_free = free_mask & torch.roll(free_mask, -1)
-    pair_free[-1] = False
+    pair_free[-1].fill_(False)
     B_chain = torch.where(pair_free[:, None, None], B_chain, 0.0)
     return blocktri.factor(D_chain, B_chain)
 
@@ -489,6 +490,7 @@ def uses_woodbury(N: int, L: int, cfg: PGOConfig) -> bool:
             and N * 6 * 6 * L * 4 <= cfg.wb_max_z_bytes)
 
 
+@compiled.jit(static_argnames=("cfg", "cg_iters"))
 def optimize(graph: PoseGraph, cfg: PGOConfig, cg_iters: int = 64) -> PoseGraph:
     """Batch damped GN over the whole graph, warm-started from the current
     estimates; node 0 and padding stay fixed. The Woodbury tier uses

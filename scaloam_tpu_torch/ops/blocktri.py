@@ -58,7 +58,7 @@ def factor(D: torch.Tensor, B: torch.Tensor, reg: float = 1e-5) -> List[Tuple[to
         eye = torch.eye(6, dtype=D.dtype, device=D.device).expand(pad, 6, 6)
         D = torch.cat([D, eye])
         B = torch.cat([B, B.new_zeros((pad, 6, 6))])
-    B[n - 1:] = 0.0  # decouple the last real block from the padding
+    B[n - 1:].zero_()  # decouple the last real block from the padding
     eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
     levels = []
     while D.shape[0] > 1:
@@ -72,7 +72,7 @@ def factor(D: torch.Tensor, B: torch.Tensor, reg: float = 1e-5) -> List[Tuple[to
             tr = torch.diagonal(D_new, dim1=-2, dim2=-1).sum(-1) * (reg / 6.0)
             D_new = D_new + tr[:, None, None] * eye6
         B_new = -torch.matmul(L, DiR)
-        B_new[-1] = 0.0
+        B_new[-1].zero_()
         levels.append((Do_inv, L, R))
         D, B = D_new, B_new
     levels.append((_inv66(D),))

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.ops import f32, voxel
 from scaloam_tpu_torch.ops.kernels import f32ops, selection
@@ -288,6 +289,7 @@ def selection_inputs(scan: LidarScan, cfg: SlamConfig) -> SelectionInputs:
     return SelectionInputs(ri, curv, left_ext, right_ext, eligible, sp, ep, ring_sel_ok)
 
 
+@compiled.jit(static_argnames=("cfg",))
 def extract_features(scan: LidarScan, cfg: SlamConfig) -> ScanFeatures:
     feat = cfg.features
     si = selection_inputs(scan, cfg)

@@ -18,6 +18,7 @@ import ctypes
 import torch
 from torch import Tensor
 
+from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.ops import f32
 from scaloam_tpu_torch.ops.kernels import _build
 
@@ -75,7 +76,7 @@ def _sq_dist_cuda(query, target):
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sq_dist: CUDA launch failed with error {err}")
-    _SQ_DIST.launches += 1
+    compiled.count(_SQ_DIST)
     return out
 
 
@@ -105,7 +106,7 @@ def _sum3_sq_cuda(v):
              torch.cuda.current_stream(v.device).cuda_stream)
     if err:
         raise RuntimeError(f"sum3_sq: CUDA launch failed with error {err}")
-    _SUM3_SQ.launches += 1
+    compiled.count(_SUM3_SQ)
     return out
 
 
@@ -132,7 +133,7 @@ def _atan2_cuda(y, x):
              torch.cuda.current_stream(y.device).cuda_stream)
     if err:
         raise RuntimeError(f"atan2: CUDA launch failed with error {err}")
-    _ATAN2.launches += 1
+    compiled.count(_ATAN2)
     return out
 
 

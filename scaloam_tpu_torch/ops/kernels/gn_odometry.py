@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.ops import gn, residuals
 from scaloam_tpu_torch.ops.kernels import _build
 from scaloam_tpu_torch.types import Pose
@@ -161,7 +162,7 @@ def _assoc_cuda(c_xyz, c_any, c_other, c_mask, s_xyz, s_any, s_same, s_other, s_
     )
     if err:
         raise RuntimeError(f"associate_and_solve: CUDA launch failed with error {err}")
-    _ASSOC.launches += 1
+    compiled.count(_ASSOC)
     return quat, trans, counts
 
 
@@ -262,7 +263,7 @@ def _prepared_cuda(quat0, trans0, c_p, c_a, c_b, c_valid, s_p, s_n, s_neg_d, s_v
     )
     if err:
         raise RuntimeError(f"gn_solve_prepared: CUDA launch failed with error {err}")
-    _PREPARED.launches += 1
+    compiled.count(_PREPARED)
     return quat, trans
 
 

@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
+from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.ops.kernels import _build
 
 NEG = -1e30
@@ -90,7 +91,7 @@ def _select_cuda(curv, left_ext, right_ext, eligible, sp, ep, n_sub, n_corner, n
     )
     if err:
         raise RuntimeError(f"select_features: CUDA launch failed with error {err}")
-    _SELECT.launches += 1
+    compiled.count(_SELECT)
     return ci, co, fi, fo, labels
 
 

@@ -43,7 +43,7 @@ def _slerp_quats(pose: Pose, s: torch.Tensor) -> torch.Tensor:
     """slerp(I, q, s) for each fraction s [n] -> [n, 4]."""
     q = pose.quat.expand(s.shape + (4,))
     ident = torch.zeros_like(q)
-    ident[..., 0] = 1.0
+    ident[..., 0].fill_(1.0)
     return se3.quat_slerp(ident, q, s[..., None])
 
 

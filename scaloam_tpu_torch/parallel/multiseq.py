@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.models import mapping as mapping_mod
 from scaloam_tpu_torch.models import odometry as odometry_mod
@@ -103,13 +104,22 @@ def frame_batch(o_states, m_states, scans_xyz: torch.Tensor, scans_mask: torch.T
     sequence's scan, of which this rank takes its own rows; without one,
     the local sequences' scans. Returns (o_states, m_states, odometry
     poses, mapped poses), the poses [n_local] (`gather_poses` collects all
-    sequences'). Raises if vmap falls back to a per-sequence loop."""
+    sequences'). The states are donated, as in the reference: on the card
+    the step is one captured program (compiled.py) that updates them in
+    place. Raises if vmap falls back to a per-sequence loop."""
     if mesh is not None:
         lo, hi = _local_range(scans_xyz.shape[0], mesh)
         scans_xyz, scans_mask = scans_xyz[lo:hi], scans_mask[lo:hi]
     n_local = num_sequences(o_states)
     if scans_xyz.shape[0] != n_local:
         raise ValueError(f"{scans_xyz.shape[0]} scans for {n_local} local sequences")
+    return _frame_batch(o_states, m_states, scans_xyz, scans_mask, cfg)
+
+
+@compiled.jit(static_argnames=("cfg",), donate_argnums=(0, 1))
+def _frame_batch(o_states, m_states, scans_xyz, scans_mask, cfg: SlamConfig):
+    """frame_batch's step on the local sequences: one program, both
+    stacked states donated (on the card updated in place)."""
     flag = o_states.initialized
     host_flag = isinstance(flag, bool)
 

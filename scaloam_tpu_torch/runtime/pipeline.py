@@ -53,6 +53,7 @@ from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.models import frontend as frontend_mod
 from scaloam_tpu_torch.models import mapping as mapping_mod
 from scaloam_tpu_torch.models import odometry as odometry_mod
+from scaloam_tpu_torch.models import pipeline as pipeline_mod
 from scaloam_tpu_torch.models import posegraph as pg
 from scaloam_tpu_torch.models import scancontext as scm
 from scaloam_tpu_torch.models.pipeline import SlamSystem
@@ -436,11 +437,17 @@ class AsyncSlamPipeline:
 
     def _precompile_stages(self) -> None:
         """On the calling thread, pay what a worker would otherwise pay on
-        its first frame: build and load both kernel libraries, run one
-        throwaway frame on throwaway state, and one throwaway optimise of a
-        two-node graph. The process's first optimise carries seconds of
-        one-time torch.func / library set-up; paid by the loop thread under
-        the system lock it would stall ingest long enough to overflow kf_q."""
+        its first frame: build and load the kernel libraries, run two
+        throwaway frames on throwaway state and one throwaway optimise of
+        a two-node graph at the system graph's capacities. On the card
+        these calls capture the step programs (compiled.py: the first
+        frame's and the later frames', the keyframe prep, the optimise at
+        the graph's tier) before any worker starts; a tier the graph grows
+        into later is captured by the loop thread, in thread-local capture
+        mode, so the front end's concurrent work cannot break it. The
+        process's first optimise also carries seconds of one-time
+        torch.func / library set-up; paid by the loop thread under the
+        system lock it would stall ingest long enough to overflow kf_q."""
         from scaloam_tpu_torch.ops.kernels import _build
 
         cfg, dev = self.cfg, self.device
@@ -449,14 +456,25 @@ class AsyncSlamPipeline:
                 _build.library(name)
         scan = LidarScan.from_numpy(np.zeros((16, 3), np.float32), cfg.sensor.max_points, dev)
         if self.fused:
-            frontend_mod.frontend_step(frontend_mod.init_state(cfg, dev), scan, cfg)
+            fe = frontend_mod.init_state(cfg, dev)
+            for _ in range(2):  # the first frame fires the gate: the prep too
+                fe, _ = frontend_mod.frontend_step(fe, scan, cfg)
         else:
-            feats = features.extract_features(scan, cfg)
-            o_tmp, o_out = odometry_mod.odometry_step(odometry_mod.init_state(cfg, dev), feats, cfg)
-            mapping_mod.mapping_step(mapping_mod.init_state(cfg, dev), o_out.world,
-                                     o_tmp.last_corner, o_tmp.last_surf, cfg)
-        bdev = self.backend_device
-        g = pg.init_graph(cfg.pgo, bdev)
+            o, m = odometry_mod.init_state(cfg, dev), mapping_mod.init_state(cfg, dev)
+            gate = pipeline_mod.init_gate_state(dev)
+            for _ in range(2):
+                feats = features.extract_features(scan, cfg)
+                o, o_out = odometry_mod.odometry_step(o, feats, cfg)
+                m, m_out = mapping_mod.mapping_step(m, o_out.world, o.last_corner,
+                                                    o.last_surf, cfg)
+                gate, _ = pipeline_mod.gate_step(
+                    gate, m_out.pose.quat, m_out.pose.trans,
+                    float(cfg.pgo.keyframe_meter_gap), float(cfg.pgo.keyframe_deg_gap))
+            full = feats.full
+            pipeline_mod._prepare_keyframe(full.xyz, full.mask, full.rel_time, cfg)
+        bdev, graph = self.backend_device, self.sys.graph
+        g = pg.init_graph(cfg.pgo, bdev, initial_nodes=pg.node_capacity(graph),
+                          initial_loops=pg.loop_capacity(graph))
         for k in range(2):
             g = pg.add_keyframe(g, Pose.identity(bdev), 0.0, False, n_nodes=k)
         pg.optimize(g, cfg.pgo)

@@ -26,7 +26,7 @@ class Pose(NamedTuple):
         """Identity poses of shape `batch_shape` (a fresh tensor each)."""
         batch_shape = tuple(batch_shape)
         q = torch.zeros(batch_shape + (4,), dtype=torch.float32, device=device)
-        q[..., 0] = 1.0
+        q[..., 0].fill_(1.0)  # a device fill: no host scalar copied in
         return Pose(q, torch.zeros(batch_shape + (3,), dtype=torch.float32, device=device))
 
 
@@ -50,7 +50,13 @@ class LidarScan(NamedTuple):
         xyz[:n] = points[:n, :3]
         mask = np.zeros((capacity,), dtype=bool)
         mask[:n] = True
-        return LidarScan(torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev))
+        xyz_t, mask_t = torch.from_numpy(xyz), torch.from_numpy(mask)
+        if dev.type == "cuda":
+            # From pinned memory the upload is asynchronous: the host does
+            # not wait for the device (the caching host allocator keeps the
+            # buffers until the copies have run).
+            xyz_t, mask_t = xyz_t.pin_memory(), mask_t.pin_memory()
+        return LidarScan(xyz_t.to(dev, non_blocking=True), mask_t.to(dev, non_blocking=True))
 
 
 class RangeImage(NamedTuple):

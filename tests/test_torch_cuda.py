@@ -15,7 +15,10 @@ problem runs the same code in its own blocks or cluster, and meet the
 same tolerances against the plain version; multiseq.frame_batch on the
 card launches each kernel once a batched frame. The rounding kernels
 (csrc/f32ops.cu: sq_dist, sum3_sq, atan2) equal their plain versions bit
-for bit, on the card and on the CPU, and vmapped in one launch.
+for bit, on the card and on the CPU, and vmapped in one launch. Each
+program the port captures as a CUDA graph (scaloam_tpu_torch/compiled.py)
+replays what it computes eagerly under compiled.disabled(): bit for bit
+where two eager calls agree bit for bit.
 """
 
 import dataclasses
@@ -23,8 +26,10 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 from scaloam_tpu_torch import config
+from scaloam_tpu_torch.models import posegraph as pg
 from scaloam_tpu_torch.models.frontend import FrontEnd
 from scaloam_tpu_torch.ops import features, se3
 from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
@@ -384,3 +389,106 @@ def test_rounding_kernels_fold_a_vmapped_batch_into_one_launch(dev):
         for b in range(2):
             one = fn(*(a[b] if d == 0 else a for a, d in zip(args, dims)))
             assert torch.equal(got[b], one)
+
+
+# ---------------------------------------------------------------------------
+# captured programs (compiled.py) against the same programs eager
+# ---------------------------------------------------------------------------
+
+CAPTURED = ("frontend_body_first", "frontend_body_later", "keyframe_prep", "extract_features",
+            "odometry_first", "odometry_later", "mapping", "gate", "optimize_chain_cg",
+            "optimize_woodbury", "frame_batch_b2")
+
+
+def _clone(tree):
+    return pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, tree)
+
+
+def _card_chain(n, n_loops, cfg, dev):
+    """A drifted straight chain of n nodes with n_loops loop factors."""
+    rng = np.random.default_rng(n)
+    g = pg.init_graph(cfg, dev, initial_nodes=n, initial_loops=n_loops)
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    for k in range(n):
+        t = torch.tensor([float(k), 0.05 * k * rng.standard_normal(), 0.0], device=dev)
+        g = pg.add_keyframe(g, Pose(ident, t), 0.0, False, n_nodes=k)
+    for m in range(n_loops):
+        z = Pose(ident, torch.tensor([float(2 * m + 1 - n), 0.0, 0.0], device=dev))
+        g = pg.add_loop(g, n - 1 - m, m, z, n_loops=m)
+    return g
+
+
+@pytest.fixture(scope="module")
+def card_inputs():
+    """The programs' inputs on the card, made eagerly: the states before
+    the first frame and after it, the second frame's scan and features."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from scaloam_tpu_torch import compiled
+    from scaloam_tpu_torch.models import frontend
+
+    dev, cfg = torch.device("cuda"), _config()
+    scans, _ = synthetic.simulate_trajectory(
+        synthetic.make_world(seed=8), n_frames=2, speed=0.8, radius=25.0, n_azimuth=256, seed=3)
+    scans = [LidarScan.from_numpy(s, cfg.sensor.max_points, dev) for s in scans]
+    with compiled.disabled():
+        s0 = frontend.init_state(cfg, dev)
+        s1, _ = frontend.frontend_step(_clone(s0), scans[0], cfg)
+        feats = features.extract_features(scans[1], cfg)
+    return {"dev": dev, "cfg": cfg, "scans": scans, "s0": s0, "s1": s1, "feats": feats}
+
+
+def _card_program(name, inp):
+    """A call of one captured program on fresh copies of its inputs (the
+    donated ones are updated in place)."""
+    from scaloam_tpu_torch.models import frontend, mapping, odometry, pipeline
+    from scaloam_tpu_torch.parallel import multiseq
+
+    cfg, dev, scans, feats = inp["cfg"], inp["dev"], inp["scans"], inp["feats"]
+    s0, s1, full = inp["s0"], inp["s1"], feats.full
+    if name.startswith("optimize"):
+        pcfg = cfg.pgo if name == "optimize_chain_cg" else dataclasses.replace(
+            cfg.pgo, wb_min_nodes=64)
+        assert pg.uses_woodbury(64, 4, pcfg) == (name == "optimize_woodbury")
+        graph = _card_chain(64, 4, pcfg, dev)
+        return lambda: pg.optimize(graph, pcfg)
+    xyz = torch.stack([scans[1].xyz, scans[0].xyz])
+    mask = torch.stack([scans[1].mask, scans[0].mask])
+    return {
+        "frontend_body_first": lambda: frontend._step_body(_clone(s0), scans[1], cfg),
+        "frontend_body_later": lambda: frontend._step_body(_clone(s1), scans[1], cfg),
+        "keyframe_prep": lambda: pipeline._prepare_keyframe(
+            full.xyz, full.mask, full.rel_time, cfg),
+        "extract_features": lambda: features.extract_features(scans[1], cfg),
+        "odometry_first": lambda: odometry.odometry_step(s0.o, feats, cfg),
+        "odometry_later": lambda: odometry.odometry_step(s1.o, feats, cfg),
+        "mapping": lambda: mapping.mapping_step(
+            _clone(s1.m), s1.o.world, feats.less_sharp, feats.less_flat, cfg),
+        "gate": lambda: pipeline.gate_step(
+            s1.gate, s1.m.pose.quat, s1.m.pose.trans, 0.5, 10.0),
+        "frame_batch_b2": lambda: multiseq.frame_batch(
+            *multiseq.init_states(2, cfg, dev), xyz, mask, cfg),
+    }[name]
+
+
+@pytest.mark.parametrize("name", CAPTURED)
+def test_captured_program_replays_its_eager_outputs(card_inputs, name):
+    """Each program the port captures, replayed, gives what the same
+    program gives eagerly (compiled.disabled()) on the same inputs, held
+    by chip_smoke.py's (j) rule: bit for bit where two eager calls agree
+    bit for bit, otherwise every integer and bool output equal and the
+    float ones within the eager calls' difference."""
+    import chip_smoke
+    from scaloam_tpu_torch import compiled
+
+    call = _card_program(name, card_inputs)
+    with compiled.disabled():
+        e1, e2 = call(), call()
+    call()  # the first call on the key runs eagerly, then captures
+    got = call()  # a replay
+    torch.cuda.synchronize()
+    leaves = [pytree.tree_leaves(x) for x in (got, e1, e2)]
+    assert [x for x in leaves[0] if not torch.is_tensor(x)] == [
+        x for x in leaves[1] if not torch.is_tensor(x)]
+    tensors = [[x for x in ls if torch.is_tensor(x)] for ls in leaves]
+    chip_smoke.j_compare(torch, name, dict(zip(("captured", "eager", "eager 2"), tensors)))

@@ -80,7 +80,7 @@ def main() -> int:
         return 2
 
     import chip_smoke as cs
-    from scaloam_tpu_torch import config
+    from scaloam_tpu_torch import compiled, config
     from scaloam_tpu_torch.models.frontend import FrontEnd
     from scaloam_tpu_torch.ops import features
     from scaloam_tpu_torch.ops.kernels import _build, gn_odometry, selection
@@ -122,13 +122,14 @@ def main() -> int:
         return gn_odometry.gn_solve_prepared_plain(*a, **k)
 
     fe = FrontEnd(cfg, device="cuda")
-    for i, scan in enumerate(dev_scans):
-        if i == 3:
-            gn_odometry.gn_solve_prepared = spy
-        try:
-            fe.step(scan.xyz, scan.mask)
-        finally:
-            gn_odometry.gn_solve_prepared = kernel_b
+    with compiled.disabled():  # a captured step's replay runs no spy
+        for i, scan in enumerate(dev_scans):
+            if i == 3:
+                gn_odometry.gn_solve_prepared = spy
+            try:
+                fe.step(scan.xyz, scan.mask)
+            finally:
+                gn_odometry.gn_solve_prepared = kernel_b
     pa, pk = captured[0]
     kb = {it: cs.graph_ms(torch, lambda: gn_odometry.gn_solve_prepared(
         *pa, gn_iterations=it, huber_delta=pk["huber_delta"]), 200) * 1e3 for it in (1, 2, 4, 8)}
