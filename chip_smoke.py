@@ -25,7 +25,13 @@ counts set to 0 just before it and read just after:
   device="cuda")` over the 160-frame synthetic loop drive of run.py's
   synthetic source, which must close a loop, with the backend's stages
   timed, their host reads counted and one call of each profiled for its
-  kernel launches;
+  kernel launches, the launches of the keyframe backend's kernels
+  (csrc/kabsch.cu, ICP's 3x3 Kabsch rotation, and csrc/segment_sum.cu,
+  the fixed-order loop-factor sums) counted too; then each of those two
+  kernels held against its plain version on every input that one of the
+  drive's loop verifications and one optimise of its final graph pass it
+  (and Kabsch on random, near-planar, reflected, rank-2 and zero
+  matrices), timed beside torch.linalg.svd and index_add_;
 - (c) the CLI: `scaloam_tpu_torch.run.main` on a 16-frame synthetic drive
   into build/smoke_session, then resumed from it, and with
   --async-pipeline into build/smoke_async;
@@ -93,28 +99,34 @@ counts set to 0 just before it and read just after:
   gate and the keyframe prep), the features program and K1 with its
   inputs on the same scans; the first 32 frames of (b) through SlamSystem
   (features, odometry, mapping, gate, keyframe prep, the 256-node
-  optimise); (h) at 8 sequences over 4 frames; (a)'s first optimise at
-  each tier. Outputs bit-equal to eager wherever the eager runs are
-  bit-equal; else integer and bool outputs equal, and the float ones of
-  (a) (whose float atomics differ run to run) held, in every run, eager
-  and captured, against the JAX recording R4 within (i)'s tolerance, any
-  other drive's within the eager runs' spread of the nearest eager run;
-  per program the ms a call, host launches, device operations and host
-  reads, eager beside captured; the peak memory of the captured (b), (h)
-  and 8192-node runs. (a)'s ticks replay captured programs, so (i) holds
-  those against the recording too. (d1)'s fused run starts its pose
-  graph at 16 nodes, so that its loop thread captures the larger tier,
-  and holds its front end until that capture has begun and the capture
-  until the front end has stepped two frames inside it; the launch
-  counts stay exact.
+  optimise); (b)'s keyframe backend: its first loop verifications
+  (icp.verify_loop with the one read of its result), ScanContext's
+  append and detection over its first 40 keyframe clouds from a 16-slot
+  table grown twice, the graph's appends of its keyframes (one starting
+  a sequence) from a 64-node graph grown once, and of its loops; (h) at 8
+  sequences over 4 frames; (a)'s first optimise at each tier (its
+  positions also held against the JAX recording R4 in every run).
+  Outputs bit-equal to eager wherever the eager runs are bit-equal, which
+  they are everywhere (the loop factors sum in one order); else integer
+  and bool outputs equal and the float ones within the eager runs' spread
+  of the nearest eager run; per program the ms a call, host launches,
+  device operations and host reads, eager beside captured; the peak
+  memory of the captured (b), (h) and 8192-node runs. (a)'s ticks replay
+  captured programs, so (i) holds those against the recording too. (d1)'s
+  fused run starts its pose graph at 16 nodes, so that its loop thread
+  captures the larger tier, and holds its front end until that capture has
+  begun and the capture until the front end has stepped two frames inside
+  it; the launch counts stay exact.
 
-The last three lines of standard output are the kernel table (JSON, with
-the launches of the system drive for K1 / K2 and of the main path for
-sq_dist / atan2, and per kernel the (g1) rows and the (g2) launches, then
-a row for each batched K1 / K2 entry at (h)'s 8 problems, with (h)'s
-launches), the card's name and power limit, and
-the device line (JSON). Any mismatch or error raises, so the exit code is
-non-zero. Without a GPU it exits non-zero and prints no result.
+Before them, the graph pools at the script's end with the keys held and
+the keys of outgrown tiers dropped. The last three lines of standard
+output are the kernel table (JSON, with the launches of the system drive
+for K1 / K2, Kabsch and the segment sum and of the main path for sq_dist
+/ atan2, and per kernel the (g1) rows and the (g2) launches, then a row
+for each batched K1 / K2 entry at (h)'s 8 problems, with (h)'s
+launches), the card's name and power limit, and the device line (JSON).
+Any mismatch or error raises, so the exit code is non-zero. Without a
+GPU it exits non-zero and prints no result.
 """
 
 import contextlib
@@ -138,6 +150,12 @@ WARM_FRAMES = 2  # excluded from the ms/frame window
 PREP_FRAME = 3  # frame whose mapping factors feed entry B's check (dense map)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 ROUNDING_KERNELS = ("sq_dist", "sum3_sq", "atan2")  # csrc/f32ops.cu
+BACKEND_KERNELS = ("kabsch", "segment_sum")  # csrc/kabsch.cu, csrc/segment_sum.cu
+KABSCH_TOL = 1e-6  # the kernel and its plain version perform the same IEEE operations
+# float operations of one Kabsch matrix: per Jacobi rotation three dot
+# products (15), the angle (13), two 3-vector pairs rotated (36); the
+# scaling (18) and the rotation's assembly (~90)
+KABSCH_OPS = 6 * 3 * 64 + 108
 ATAN2_OPS = 34  # float32 operations of glibc's atan2f an element (csrc/f32ops.cu)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 K2_QUAT_TOL = 2e-4  # f32 summation order differs from the plain version
@@ -217,11 +235,14 @@ H_Q_TOL, H_T_TOL = 5e-4, 5e-3
 # count as host launches.
 J_SYS_FRAMES = 32
 J_PROFILE_AT = 2
-# Eager runs a drive. (a)'s optimise at 4096 and 8192 nodes sums loop
-# factors sharing a node with float index_add_, so each run is a draw of
-# its own: there every run, eager and captured, is held against the JAX
-# recording (R4) instead.
-J_EAGER_RUNS = 3
+J_EAGER_RUNS = 3  # eager runs a drive
+# The keyframe backend's programs in (j): ICP verify on (b)'s first loop
+# candidates (their recorded calls), ScanContext's append and detect over
+# (b)'s first keyframe clouds, the graph's appends of (b)'s keyframes (one
+# starting a sequence) and loops.
+J_ICP_CALLS = 6
+J_SC_KEYFRAMES = 40
+J_NEW_SEQUENCE_AT = 20
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                      "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
                      "cuMemcpy", "cuMemset")
@@ -689,6 +710,13 @@ def launch_profile(torch, fn):
     return out, device, host
 
 
+def _backend_counters():
+    """The keyframe backend's kernel wrappers, by BACKEND_KERNELS name."""
+    from scaloam_tpu_torch.ops.kernels import kabsch, segment_sum
+
+    return {"kabsch": kabsch.kabsch_rotation, "segment_sum": segment_sum.add}
+
+
 def _launch_counts():
     """The kernels' launch counters, by kernel."""
     from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry, selection
@@ -696,7 +724,8 @@ def _launch_counts():
     return {"K1": selection.select_features.launches,
             "K2 A": gn_odometry.associate_and_solve.launches,
             "K2 B": gn_odometry.gn_solve_prepared.launches,
-            **{name: getattr(f32ops, name).launches for name in ROUNDING_KERNELS}}
+            **{name: getattr(f32ops, name).launches for name in ROUNDING_KERNELS},
+            **{name: fn.launches for name, fn in _backend_counters().items()}}
 
 
 def _zero_launches():
@@ -705,7 +734,8 @@ def _zero_launches():
 
     for fn in (selection.select_features, gn_odometry.associate_and_solve,
                gn_odometry.gn_solve_prepared,
-               *(getattr(f32ops, name) for name in ROUNDING_KERNELS)):
+               *(getattr(f32ops, name) for name in ROUNDING_KERNELS),
+               *_backend_counters().values()):
         fn.launches = 0
 
 
@@ -854,9 +884,19 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
 
 
 def system_phase(torch, dev, cfg, scans, gt, launch_counters):
-    """(b): the drive through SlamSystem(cfg); returns the stats."""
+    """(b): the drive through SlamSystem(cfg); returns the stats, with the
+    first J_ICP_CALLS calls of icp.verify_loop (their arguments) for (j)
+    and the backend kernel checks."""
     from scaloam_tpu_torch.models import pipeline, posegraph
+    from scaloam_tpu_torch.ops import icp
     from scaloam_tpu_torch.utils.evaluation import ate_rmse
+
+    icp_calls, verify = [], icp.verify_loop
+
+    def recorded(*a, **k):  # the inputs are fresh uploads a call: kept as they are
+        if len(icp_calls) < J_ICP_CALLS:
+            icp_calls.append((a, k))
+        return verify(*a, **k)
 
     s = pipeline.SlamSystem(cfg, device=dev)
     syncs = SyncCounter(torch)
@@ -873,6 +913,7 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
     pipeline._prepare_keyframe = stages["keyframe prep"]
     posegraph.add_keyframe = stages["graph append"]
     posegraph.optimize = stages["optimise"]
+    icp.verify_loop = recorded
     s.sc.make_and_save = stages["sc make"]
     s.sc.detect_loop_closure_id = stages["sc detect"]
     s._icp_verify = stages["icp verify"]
@@ -898,6 +939,7 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
         torch.cuda.synchronize()
     finally:
         pipeline._prepare_keyframe, posegraph.add_keyframe, posegraph.optimize = orig
+        icp.verify_loop = verify
     launches = [c.launches for c in launch_counters]
     for st in stages.values():
         st.replay()
@@ -925,6 +967,7 @@ def system_phase(torch, dev, cfg, scans, gt, launch_counters):
         "host_syncs_per_frame_non_keyframe": float(np.mean(np.asarray(frame_syncs)[~kf])),
         "host_syncs_per_frame_keyframe": float(np.mean(np.asarray(frame_syncs)[kf])),
         "stages": {k: v.summary() for k, v in stages.items()},
+        "icp_ms": stages["icp verify"].ms, "icp_calls": icp_calls,
         "odom_first": torch.stack(odom_first).cpu().numpy(),
         "keyframes_first": int(np.sum(kf[:ASYNC_FRAMES])),
         "first_frames": {"mapped": torch.stack(mapped_first).cpu().numpy(),
@@ -1712,6 +1755,129 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
         log(f"{tag}{name} times {r['shape']}: kernel {r['ms']:.4f} ms (eager call "
             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
+def kabsch_cases(torch, dev, n=300):
+    """Random, near-planar (s3 = 1e-6 s1), reflected (det < 0), rank-2 and
+    zero 3x3 matrices on the card, seeded."""
+    rng = np.random.default_rng(11)
+    U, V = (np.linalg.qr(rng.normal(size=(n, 3, 3)))[0] for _ in range(2))
+    s = np.sort(rng.uniform(0.1, 1.0, (n, 3)), axis=1)[:, ::-1] * rng.uniform(1, 1e3, (n, 1))
+    planar, rank2 = s.copy(), s.copy()
+    planar[:, 2], rank2[:, 2] = 1e-6 * s[:, 0], 0.0
+    make = lambda sv: U @ (sv[:, :, None] * np.swapaxes(V, 1, 2))
+    refl = make(s) * np.where(np.linalg.det(make(s)) > 0, -1.0, 1.0)[:, None, None]
+    cases = {"random": rng.normal(size=(n, 3, 3)) * rng.uniform(0.1, 1e4, (n, 1, 1)),
+             "near-planar": make(planar), "reflected": refl, "rank-2": make(rank2),
+             "zero": np.zeros((8, 3, 3))}
+    return {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in cases.items()}
+
+
+def backend_kernel_checks(torch, dev, system, icp_call):
+    """csrc/kabsch.cu and csrc/segment_sum.cu against their plain versions
+    on the card, on every input that one eager loop verification of (b)
+    (`icp_call`, a recorded call of icp.verify_loop) and one eager
+    optimise of (b)'s final graph pass them (spied), and Kabsch on
+    kabsch_cases; each timed at the largest input of the verification or
+    the optimise, beside its plain version, its bound and the PyTorch call
+    that computes the same function: torch.linalg.svd (which reads the
+    device from the host; its host syncs counted) and index_add_ (float
+    atomics). Also whether index_add_ and index_put_(accumulate=True) sum
+    in the kernel's order and are bit-equal run to run. Returns {name:
+    row}."""
+    from scaloam_tpu_torch import compiled
+    from scaloam_tpu_torch.models import posegraph as pg
+    from scaloam_tpu_torch.ops import icp
+    from scaloam_tpu_torch.ops.kernels import kabsch, segment_sum
+
+    kernels = {"kabsch": kabsch.kabsch_rotation, "segment_sum": segment_sum.add}
+    seen = {name: [] for name in kernels}
+
+    def spy(name):
+        def call(*args):
+            seen[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return kernels[name](*args)
+        return call
+
+    kabsch.kabsch_rotation, segment_sum.add = spy("kabsch"), spy("segment_sum")
+    try:
+        with compiled.disabled():  # a captured step's replay runs no spy
+            icp.verify_loop(*icp_call[0], **icp_call[1])
+            pg.optimize(system.graph, system.cfg.pgo)
+    finally:
+        kabsch.kabsch_rotation, segment_sum.add = kernels["kabsch"], kernels["segment_sum"]
+    rows = {}
+    # Kabsch: every H of the verification, one at a time and as one batch,
+    # and the edge cases
+    Hs = [h for (h,) in seen["kabsch"]]
+    cases = {"verification": torch.cat(Hs), **kabsch_cases(torch, dev)}
+    err = 0.0
+    for label, H in cases.items():
+        got, want = kabsch.kabsch_rotation(H), kabsch.kabsch_plain(H)
+        e = float((got - want).abs().max())
+        orth = float((got @ got.mT - torch.eye(3, device=dev)).abs().max())
+        if not (e <= KABSCH_TOL and torch.isfinite(got).all() and orth < 1e-5):
+            raise AssertionError(f"kabsch {label} {tuple(H.shape)}: {e:.3e} from plain "
+                                 f"(tol {KABSCH_TOL}), |R R^T - I| {orth:.2e}")
+        err = max(err, e)
+        log(f"kabsch {label} {tuple(H.shape)}: |kernel - plain| {e:.3e} (tol {KABSCH_TOL}), "
+            f"|R R^T - I| {orth:.2e}")
+    if not all(float((kabsch.kabsch_rotation(h) - kabsch.kabsch_plain(h)).abs().max())
+               <= KABSCH_TOL for h in Hs):
+        raise AssertionError("kabsch: a verification call differs from plain")
+    H = max(Hs, key=lambda h: h.shape[0])
+    with SyncCounter(torch) as sc:
+        torch.linalg.svd(H)
+        svd_syncs = sc.count()
+    rows["kabsch"] = dict(max_abs_err=err, shape=list(H.shape), calls=len(Hs),
+                          ms=graph_ms(torch, lambda: kabsch.kabsch_rotation(H), 100),
+                          eager_ms=cuda_ms(torch, lambda: kabsch.kabsch_rotation(H), 200),
+                          plain_ms=cuda_ms(torch, lambda: kabsch.kabsch_plain(H), 20),
+                          library_ms=cuda_ms(torch, lambda: torch.linalg.svd(H), 50),
+                          library_host_syncs=svd_syncs)
+    rows["kabsch"]["bound_ms"], rows["kabsch"]["bound_by"] = bound_ms(
+        H.shape[0] * 72, H.shape[0] * KABSCH_OPS)
+    # segment sums: every call of the optimise, bit for bit
+    for base, rws, plan in seen["segment_sum"]:
+        got = segment_sum.add(base, rws, plan)
+        if not torch.equal(got.view(torch.int32),
+                           segment_sum.add_plain(base, rws, *plan).view(torch.int32)):
+            raise AssertionError(f"segment_sum {tuple(base.shape)} {tuple(rws.shape)}: differs "
+                                 f"from the plain version")
+    # the largest call with the most nodes that several rows reach
+    shared = lambda p: int(((p.starts[1:] - p.starts[:-1]) > 1).sum())
+    base, rws, plan = max(seen["segment_sum"], key=lambda c: (c[1].numel(), shared(c[2])))
+    n, R = base.shape[0], rws.shape[0]
+    counts = plan.starts[1:] - plan.starts[:-1]
+    # the rows in the plan (padding rows are in none), by node, each node's
+    # in ascending row order, for the library calls
+    index = torch.repeat_interleave(torch.arange(n, device=dev), counts)
+    rows_in = rws[plan.order[:index.shape[0]]]
+    ref = segment_sum.add(base, rws, plan)
+    same = lambda x: torch.equal(x.view(torch.int32), ref.view(torch.int32))
+    flat = lambda x: x.reshape(n, -1)
+    adds = [base.index_add(0, index, rows_in) for _ in range(20)]
+    puts = [base.index_put((index,), rows_in, accumulate=True) for _ in range(20)]
+    rows["segment_sum"] = dict(
+        max_abs_err=0.0, shape=[list(base.shape), list(rws.shape)], calls=len(seen["segment_sum"]),
+        shared_nodes=shared(plan),
+        ms=graph_ms(torch, lambda: segment_sum.add(base, rws, plan), 100),
+        eager_ms=cuda_ms(torch, lambda: segment_sum.add(base, rws, plan), 200),
+        plain_ms=cuda_ms(torch, lambda: segment_sum.add_plain(base, rws, *plan), 20),
+        library_ms=cuda_ms(torch, lambda: base.index_add(0, index, rows_in), 200),
+        index_add_in_order=sum(map(same, adds)), index_put_in_order=sum(map(same, puts)),
+        index_add_run_to_run_equal=all(torch.equal(flat(a), flat(adds[0])) for a in adds),
+        index_put_run_to_run_equal=all(torch.equal(flat(a), flat(puts[0])) for a in puts))
+    c = rws[0].numel()
+    rows["segment_sum"]["bound_ms"], rows["segment_sum"]["bound_by"] = bound_ms(
+        2 * n * c * 4 + R * c * 4 + R * 8 + (n + 1) * 8, R * c)
+    for name, r in rows.items():
+        log(f"{name} {r['shape']} ({r['calls']} calls in one eager run): kernel {r['ms']:.4f} ms "
+            f"(eager call {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), library {r['library_ms']:.4f} ms; "
+            + json.dumps({k: v for k, v in r.items() if k not in (
+                "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}))
     return rows
 
 
@@ -2504,18 +2670,16 @@ def _fdiff(torch, a, b) -> float:
     return float(torch.where(same, 0.0, d.nan_to_num(nan=float("inf"))).max()) if d.numel() else 0.0
 
 
-def j_compare(torch, label, runs, held_by=None):
+def j_compare(torch, label, runs):
     """The captured run's tensors against the eager runs' ({mode: list}):
     where the eager runs are bit-equal throughout the drive, the captured
-    run bit-equal to them. Otherwise (float atomics: `index_add_` over
-    colliding rows makes each eager run a draw of its own) every integer
-    and bool tensor equal to the first eager run's, and the float ones
-    held by the check `held_by` names, which the caller makes; without one,
-    the captured run's largest float difference from its nearest eager run
-    within the largest difference between two eager runs (the spread).
-    Returns the tensors compared, how many are bit-equal to the first
-    eager run, the largest difference from the nearest eager run, the
-    spread and `held_by`."""
+    run bit-equal to them. Otherwise (a float sum whose order changes run
+    to run) every integer and bool tensor equal to the first eager run's,
+    and the captured run's largest float difference from its nearest
+    eager run within the largest difference between two eager runs (the
+    spread). Returns the tensors compared, how many are bit-equal to the
+    first eager run, the largest difference from the nearest eager run
+    and the spread."""
     cap, eager = runs["captured"], [x for m, x in runs.items() if m != "captured"]
     if not (len(cap) > 0 and all(len(e) == len(cap) for e in eager)):
         raise AssertionError(f"(j) {label}: {len(cap)} tensors, eager {[len(e) for e in eager]}")
@@ -2535,12 +2699,11 @@ def j_compare(torch, label, runs, held_by=None):
             raise AssertionError(f"(j) {label}: tensor {i} ({c.dtype} {tuple(c.shape)}) differs "
                                  f"from eager, and the eager runs agree on it")
     nearest = min(largest(cap, e) for e in eager)
-    if held_by is None and nearest > spread:
+    if nearest > spread:
         raise AssertionError(f"(j) {label}: {nearest:.3e} from the nearest eager run, past the "
                              f"eager runs' spread {spread:.3e}")
     return {"tensors": len(cap), "bit_equal": n_equal, "max_diff": nearest,
-            "eager_spread": spread, "eager_runs_bit_equal": eager_equal,
-            "floats_held_by": None if eager_equal else held_by or "the eager spread"}
+            "eager_spread": spread, "eager_runs_bit_equal": eager_equal}
 
 
 def _tensors(torch, tree):
@@ -2644,6 +2807,72 @@ def _j_batch(torch, cfg, xyz, mask):
     return _j_runs(torch, drive)
 
 
+def _j_verify(torch, calls):
+    """(b)'s recorded loop verifications through icp.verify_loop, each with
+    the one read of its result that SlamSystem._icp_verify makes."""
+    from scaloam_tpu_torch.ops import icp
+
+    def verify(args, kwargs):
+        res, coarse = icp.verify_loop(*args, **kwargs)
+        out = [res.transform.quat, res.transform.trans, res.fitness, res.converged, coarse]
+        return out + [torch.cat([res.fitness.reshape(1), res.transform.quat]).cpu()]
+
+    calls = (calls * 4)[:max(4, len(calls))]  # enough calls to profile one and time others
+
+    def drive(syncs, profile_at):
+        prog = Stage(torch, "ICP verify", verify, syncs, profile_at)
+        return {"ICP verify": [x for a, k in calls for x in prog(a, k)]}, {"ICP verify": prog}
+
+    return _j_runs(torch, drive)
+
+
+def _j_scancontext(torch, dev, cfg, clouds):
+    """ScanContext over (b)'s first keyframe clouds as SlamSystem drives it:
+    make_and_append each (growing the database past its first tier of 16),
+    then detect_latest once the database can answer."""
+    from scaloam_tpu_torch.models import scancontext as scm
+
+    sc_cfg = cfg.scancontext
+
+    def drive(syncs, profile_at):
+        make = Stage(torch, "SC make_and_append", scm.make_and_append, syncs, profile_at)
+        # (detection starts at num_exclude_recent; its profiled call is past the growth at 32)
+        detect = Stage(torch, "SC detect_latest", scm.detect_latest, syncs,
+                       None if profile_at is None else profile_at + 4)
+        db, out = scm.init_db(sc_cfg, dev, initial=16), []
+        for n, (xyz, mask) in enumerate(clouds):
+            if n >= db.descriptors.shape[0]:
+                db = scm.grow_db(db, 2 * db.descriptors.shape[0])
+            db, sc = make(db, xyz, mask, sc_cfg)
+            out.append(sc)
+            if n >= sc_cfg.num_exclude_recent:
+                out += list(detect(db, sc_cfg))
+        return {"ScanContext": out + list(db)}, {"SC make_and_append": make,
+                                                 "SC detect_latest": detect}
+
+    return _j_runs(torch, drive)
+
+
+def _j_appends(torch, dev, cfg, poses, loops):
+    """The graph's appends through their host wrappers: (b)'s keyframe
+    odometry poses from a graph of 64 nodes (grown on the way; node
+    J_NEW_SEQUENCE_AT starts a sequence), then (b)'s loops."""
+    from scaloam_tpu_torch.models import posegraph as pg
+
+    def drive(syncs, profile_at):
+        add_kf = Stage(torch, "graph add_keyframe", pg.add_keyframe, syncs, profile_at)
+        add_loop = Stage(torch, "graph add_loop", pg.add_loop, syncs, profile_at)
+        g = pg.init_graph(cfg.pgo, dev, initial_nodes=64, initial_loops=64)
+        for k, p in enumerate(poses):
+            g = add_kf(g, p, 0.0, False, n_nodes=k, new_sequence=k == J_NEW_SEQUENCE_AT)
+        for m, (i, j, z) in enumerate(loops):
+            g = add_loop(g, i, j, z, n_loops=m)
+        return {"appends": _tensors(torch, g)}, {"graph add_keyframe": add_kf,
+                                                  "graph add_loop": add_loop}
+
+    return _j_runs(torch, drive)
+
+
 def _j_optimise(torch, dev, tiers=PGO_TIERS):
     """(a)'s first optimise at each tier on its circle chain; returns
     (the runs, per tier every run's largest position difference from the
@@ -2689,22 +2918,36 @@ def _j_optimise(torch, dev, tiers=PGO_TIERS):
     return runs, recording
 
 
-def captured_phase(torch, dev, cfg, dev_scans, sys_cfg, sys_scans):
+def captured_phase(torch, dev, cfg, dev_scans, sys_cfg, sys_scans, sys_stats):
     """(j): every captured program against itself eager, over the main
-    path's frames, (b)'s first J_SYS_FRAMES, (h) at H_SEQ sequences and (a)'s
-    tiers: outputs held by j_compare, per program the ms a call, host
-    launches, device operations and host reads, eager beside captured, and
-    the peak memory above what was held before each of the (b), (h) and
-    (a) drives."""
+    path's frames, (b)'s first J_SYS_FRAMES, (b)'s keyframe backend (its
+    recorded loop verifications, ScanContext and the graph's appends over
+    its keyframes), (h) at H_SEQ sequences and (a)'s tiers: outputs held by
+    j_compare, per program the ms a call, host launches, device operations
+    and host reads, eager beside captured, and the peak memory above what
+    was held before each of the (b), (h) and (a) drives."""
+    from scaloam_tpu_torch.models.pipeline import _padded
+    from scaloam_tpu_torch.types import Pose
+
+    system = sys_stats["system"]
+    kf_cap = sys_cfg.pgo.keyframe_cloud_capacity
+    clouds = [_padded(kf.cloud[:kf_cap], kf_cap, dev) for kf in system.keyframes[:J_SC_KEYFRAMES]]
+    n_kf, odom = len(system.keyframes), system.graph.odom_poses
+    poses = [Pose(odom.quat[k].clone(), odom.trans[k].clone()) for k in range(n_kf)]
+    rel = system.graph.loop_rel
+    loops = [(i, j, Pose(rel.quat[m].clone(), rel.trans[m].clone()))
+             for m, (i, j) in enumerate(system.loops_found)]
     xyz = torch.stack([torch.stack([dev_scans[s + f].xyz for s in range(H_SEQ)])
                        for f in range(H_FRAMES)])
     mask = torch.stack([torch.stack([dev_scans[s + f].mask for s in range(H_SEQ)])
                         for f in range(H_FRAMES)])
     drives = {"main path": _j_frontend(torch, dev, cfg, dev_scans),
               "(b)": _j_system(torch, dev, sys_cfg, sys_scans[:J_SYS_FRAMES]),
+              "(b) ICP verify": _j_verify(torch, sys_stats["icp_calls"]),
+              "(b) ScanContext": _j_scancontext(torch, dev, sys_cfg, clouds),
+              "(b) graph appends": _j_appends(torch, dev, sys_cfg, poses, loops),
               "(h)": _j_batch(torch, cfg, xyz, mask)}
     drives["(a)"], recording = _j_optimise(torch, dev)
-    held_by = {"(a)": "every run's positions within I_PGO_TOL_M of the JAX recording (R4)"}
     stats = {"outputs": {}, "programs": {}, "peak_bytes": {}, "a_from_recording_m": recording}
     for drive, runs in drives.items():
         for key, value in runs["captured"][0].items():
@@ -2715,8 +2958,7 @@ def captured_phase(torch, dev, cfg, dev_scans, sys_cfg, sys_scans):
             if key.startswith("positions"):
                 continue
             stats["outputs"][f"{drive} {key}"] = j_compare(
-                torch, f"{drive} {key}", {m: run[0][key] for m, run in runs.items()},
-                held_by.get(drive))
+                torch, f"{drive} {key}", {m: run[0][key] for m, run in runs.items()})
         for name in runs["captured"][1]:
             stats["programs"][f"{drive} {name}"] = {m: runs[m][1][name].summary()
                                                     for m in ("eager", "captured")}
@@ -2836,12 +3078,14 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     t_drive = time.perf_counter()
     sys_cfg = config.kitti_hdl64()
     sys_cfg = sys_cfg.replace(pgo=dataclasses.replace(sys_cfg.pgo, keyframe_meter_gap=1.0))
-    sys_stats = system_phase(torch, dev, sys_cfg, scans, sys_gt, counters)
-    launches = dict(zip(("K1", "K2 A", "K2 B"), sys_stats["launches"]))
+    sys_stats = system_phase(torch, dev, sys_cfg, scans, sys_gt,
+                             counters + tuple(_backend_counters().values()))
+    launches = dict(zip(("K1", "K2 A", "K2 B") + BACKEND_KERNELS, sys_stats["launches"]))
     want = {"K1": SYS_FRAMES, "K2 A": SYS_FRAMES - 1,
             "K2 B": config.kitti_hdl64().mapping.outer_iterations * SYS_FRAMES}
-    if launches != want:
-        raise AssertionError(f"system drive launches {launches}, want {want}")
+    if {k: launches[k] for k in want} != want or min(launches[k] for k in BACKEND_KERNELS) < 1:
+        raise AssertionError(f"system drive launches {launches}, want {want} and each of "
+                             f"{BACKEND_KERNELS} at least once")
     log(f"system drive: {sys_stats['frames']} frames, {sys_stats['keyframes']} keyframes, "
         f"loops {sys_stats['loops']}, launches {launches}, ATE optimised "
         f"{sys_stats['ate_opt_m']:.4f} m vs odometry {sys_stats['ate_odom_m']:.4f} m")
@@ -2853,6 +3097,14 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
         f"keyframe {sys_stats['host_syncs_per_frame_keyframe']:.2f}")
     for name, st in sys_stats["stages"].items():
         log(f"  stage {name}: {json.dumps(st)}")
+    icp_ms, icp_st = sys_stats["icp_ms"], sys_stats["stages"]["icp verify"]
+    log(f"system ICP verify: {len(icp_ms)} calls timed, ms a call median "
+        f"{np.median(icp_ms[1:] if len(icp_ms) > 1 else icp_ms):.2f} after the first "
+        f"(eager, then captured: {icp_ms[0]:.2f}), host reads a call "
+        f"{icp_st['host_syncs_mean']:.2f}, host launches {icp_st['host_launches']}, device "
+        f"operations {icp_st['launches']}; keyframe median "
+        f"{sys_stats['ms_per_frame_keyframe_median']:.2f} ms")
+    bk_rows = backend_kernel_checks(torch, dev, sys_stats["system"], sys_stats["icp_calls"][0])
     non_kf, kf_ms, fe_ms = clean_frame_times(torch, dev, sys_cfg, scans[:CLEAN_FRAMES])
     sys_stats["clean"] = {"frames": CLEAN_FRAMES, "system_non_keyframe_ms": non_kf.tolist(),
                           "system_keyframe_ms": kf_ms.tolist(), "frontend_ms": fe_ms.tolist()}
@@ -2957,11 +3209,10 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
 
     # ---- (j) the captured programs against eager
     t_phase = time.perf_counter()
-    j = captured_phase(torch, dev, cfg, dev_scans, sys_cfg, scans)
+    j = captured_phase(torch, dev, cfg, dev_scans, sys_cfg, scans, sys_stats)
     for name, row in j["outputs"].items():
         spread = ("bit-equal" if row["eager_runs_bit_equal"]
-                  else f"apart by {row['eager_spread']:.3e}; floats held by "
-                       f"{row['floats_held_by']}")
+                  else f"apart by {row['eager_spread']:.3e}")
         log(f"(j) {name}: {row['tensors']} tensors, {row['bit_equal']} bit-equal to eager, "
             f"largest difference {row['max_diff']:.3e} (eager runs {spread})")
     for n, row in j["a_from_recording_m"].items():
@@ -2989,6 +3240,13 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     ref = reference_phase(main_record, g1, g2, pgo_rows)
     log(f"(i) {json.dumps(ref)}")
     phase_wall(torch, f"(i) against the recorded JAX runs {time.perf_counter() - t_phase:.1f} s")
+    from scaloam_tpu_torch import compiled
+
+    pools = graph_pool_bytes(torch)
+    log(f"graph pools at the script's end: "
+        f"{'not measured' if pools is None else f'{pools / 2**30:.2f} GiB'} (PR 10 run 11: 3.53 "
+        f"GiB), keys held {sum(len(st._cache) for st in compiled._steps)}, keys of outgrown "
+        f"tiers dropped {sum(st.dropped for st in compiled._steps)}")
     log(f"script wall: {time.perf_counter() - t_script:.1f} s")
 
     gn_src = "scaloam_tpu_torch/csrc/gn_odometry.cu"
@@ -3027,6 +3285,17 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
             "g1": {name: {k: g1[name]["kernels"][key][k] for k in (
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
                 for name in g1}})
+    for key, source, replaces in (
+            ("kabsch", "scaloam_tpu_torch/csrc/kabsch.cu", "scaloam_tpu/ops/icp.py:122"),
+            ("segment_sum", "scaloam_tpu_torch/csrc/segment_sum.cu",
+             "scaloam_tpu/models/posegraph.py:439")):
+        row = bk_rows[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "eager_ms": row["eager_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "matched": True, "shape": row["shape"]})
     for key, m in meta.items():
         row = h_rows[key]
         kernels.append({

@@ -28,7 +28,9 @@ ops and round otherwise.
   back into the caller's tensors in place, and every other tensor output
   is returned as a clone, so no caller holds a buffer that the next
   replay overwrites. The `k`-th donated argument's new value is the `k`-th
-  element of the returned tuple.
+  element of the returned tuple, or, for a step with one donated argument
+  that returns a value shaped as it (`add_keyframe_jit` returns the
+  graph), the returned value.
 - All keys of one step share one graph memory pool a device, so a tier
   the pose graph has grown past keeps its buffers and outputs, not a
   pool of its own. So the step's replays run one at a time: each waits for
@@ -37,6 +39,14 @@ ops and round otherwise.
 - Launch counts: a kernel's wrapper calls `count` where it launches. While
   a thread captures a step, its launches go to the capture's tally (that
   thread's only), which the graph adds to the counters at each replay.
+- A capacity tier that a table has grown past is never replayed again:
+  `drop(table)` (called by the pose graph's `grow` and the ScanContext
+  database's `grow_db` with the outgrown table) removes, from every step,
+  each key whose arguments held a tensor layout equal to the table's (its
+  leaves' shapes, dtypes and devices in order), with its graph, outputs
+  and input buffers. They are freed once the step's last replay has run
+  (an event behind it, polled at the step's next call or drop), so the
+  step's later captures reuse their blocks of the pool.
 - The wrapper calls `fn` itself on CPU tensors (the plain path the caller
   asked for), inside another capture or eager run of this module (a
   program's inner steps are part of it, as nested `jax.jit`s are), under
@@ -52,6 +62,7 @@ import contextlib
 import functools
 import inspect
 import threading
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -59,6 +70,7 @@ import torch.utils._pytree as pytree
 
 _local = threading.local()  # .inline: eager / capture depth; .disabled: disabled() depth;
 # .tally: the launches of the capture running on this thread
+_steps: "weakref.WeakSet[Compiled]" = weakref.WeakSet()  # every step, for drop()
 
 
 def count(counter) -> None:
@@ -125,12 +137,15 @@ class Compiled:
                 raise ValueError(f"{fn.__name__} has no argument {name!r}")
         self._donate = tuple(names[i] for i in donate_argnums)
         self._cache: Dict[Any, _Entry] = {}
-        self._lock = threading.Lock()  # guards _cache, _pools, _buffers and each capture
+        self._lock = threading.Lock()  # guards _cache, _pools, _buffers, _retired, each capture
         self._pools: Dict[torch.device, Tuple] = {}  # (graph pool, capture stream) a device
         self._buffers: Dict[Tuple, List[Optional[torch.Tensor]]] = {}  # input buffers a layout
         self._replaying = threading.Lock()  # one replay at a time
         self._done: Dict[torch.device, torch.cuda.Event] = {}  # each device's last replay
+        self._retired: List[Tuple] = []  # (event or None, what it keeps alive) from drop()
         self.captures = 0  # graphs captured (one a key)
+        self.dropped = 0  # keys dropped with an outgrown tier
+        _steps.add(self)
 
     def __call__(self, *args, **kwargs):
         bound = self._sig.bind(*args, **kwargs)
@@ -146,6 +161,8 @@ class Compiled:
                tuple(spec for _, spec in per_arg),
                tuple(_leaf_key(x) for x in leaves))
         with self._lock:
+            if self._retired:
+                self._free_retired()
             entry = self._cache.get(key)
             if entry is None:
                 return self._first_call(key, arguments, dynamic, per_arg, leaves)
@@ -242,10 +259,43 @@ class Compiled:
                 counter.launches += n
         return pytree.tree_unflatten(out, entry.out_spec)
 
+    def _drop(self, layout: Tuple) -> int:
+        """Retire the keys and input buffers whose leaves hold `layout` as
+        a contiguous run; returns the number of keys."""
+        with self._lock:
+            keys = [k for k in self._cache if _holds(k[2], layout)]
+            layouts = [k for k in self._buffers if _holds(k, layout)]
+            gone = ([self._cache.pop(k) for k in keys], [self._buffers.pop(k) for k in layouts])
+            if keys or layouts:
+                self._retired.append((self._behind_last_replay(), gone))
+                self.dropped += len(keys)
+            self._free_retired()
+        return len(keys)
+
+    def _behind_last_replay(self):
+        """An event that completes once every device's last replay of this
+        step has run, or None where none was made."""
+        if not self._done:
+            return None
+        dev = next(iter(self._done))
+        side = self._pools[dev][1]
+        for done in list(self._done.values()):
+            side.wait_event(done)
+        event = torch.cuda.Event()
+        event.record(side)
+        return event
+
+    def _free_retired(self) -> None:
+        """Let go of retired keys whose replays have all run."""
+        self._retired = [(ev, kept) for ev, kept in self._retired
+                         if ev is not None and not ev.query()]
+
     def _donated(self, out, per_arg, dynamic) -> Dict[int, int]:
         """{output leaf: input leaf} for the donated arguments' tensors:
-        the k-th donated argument pairs with the k-th returned element,
-        leaf by leaf where both are tensors of one shape and dtype."""
+        the k-th donated argument pairs with the k-th returned element (or
+        a lone donated argument with the returned value, where that is
+        shaped as it), leaf by leaf where both are tensors of one shape and
+        dtype."""
         pairs: Dict[int, int] = {}
         if not self._donate:
             return pairs
@@ -259,15 +309,31 @@ class Compiled:
             pos += len(pytree.tree_leaves(elem))
         for k, name in enumerate(self._donate):
             flat, spec = per_arg[dynamic.index(name)]
-            got, got_spec = pytree.tree_flatten(out[k])
+            whole = len(self._donate) == 1 and pytree.tree_structure(out) == spec
+            got, got_spec = pytree.tree_flatten(out if whole else out[k])
             if got_spec != spec:
                 raise ValueError(f"{self.__name__}: returned element {k} is not shaped "
                                  f"as the donated argument {name!r}")
             for j, (x, y) in enumerate(zip(flat, got)):
                 if (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
                         and x.shape == y.shape and x.dtype == y.dtype):
-                    pairs[out_starts[k] + j] = starts[name] + j
+                    pairs[(0 if whole else out_starts[k]) + j] = starts[name] + j
         return pairs
+
+
+def drop(table) -> int:
+    """Retire, from every step, each key whose arguments held `table`'s
+    tensor layout (see the module docstring): the capacity tier `table`
+    was at has been outgrown. Returns the number of keys dropped."""
+    layout = tuple(_leaf_key(x) for x in pytree.tree_leaves(table)
+                   if isinstance(x, torch.Tensor))
+    return sum(step._drop(layout) for step in list(_steps)) if layout else 0
+
+
+def _holds(keys: Tuple, run: Tuple) -> bool:
+    """Whether `run` occurs in `keys` as a contiguous run."""
+    n = len(run)
+    return any(keys[i:i + n] == run for i in range(len(keys) - n + 1))
 
 
 def _on_card(tensors: List[torch.Tensor], name: str) -> bool:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,13 @@ def resolve(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device`. To a card it goes from pinned
+    memory, so the host does not wait for the copy (the caching host
+    allocator keeps the buffer until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

@@ -167,12 +167,13 @@ def _linspace_take(a: np.ndarray, cap: int) -> np.ndarray:
 
 
 def _padded(a: np.ndarray, cap: int, device):
-    """(xyz [cap, 3], mask [cap]) device tensors holding a's rows first."""
+    """(xyz [cap, 3], mask [cap]) device tensors holding a's rows first,
+    uploaded without waiting (_device.upload)."""
     out = np.zeros((cap, 3), np.float32)
     out[: len(a)] = a
     m = np.zeros(cap, bool)
     m[: len(a)] = True
-    return torch.from_numpy(out).to(device), torch.from_numpy(m).to(device)
+    return _device.upload(out, device), _device.upload(m, device)
 
 
 class SlamSystem:
@@ -304,7 +305,7 @@ class SlamSystem:
         if idx < 0:
             return None
         curr = len(self.keyframes) - 1
-        z = self._icp_verify(curr, idx, yaw)
+        z = self._icp_verify(curr, idx, yaw, poses=self.fetch_pose_tables())
         if z is None:
             return None
         return self.commit_loop(curr, idx, z)
@@ -323,8 +324,11 @@ class SlamSystem:
 
     def _icp_verify(self, curr: int, loop_idx: int, yaw: float, poses=None) -> Optional[Pose]:
         """ICP verification in the loop keyframe's local frame, seeded by the
-        graph-estimated relative pose and by the ScanContext yaw. Returns the
-        loop measurement X_curr^-1 X_loop, or None if rejected."""
+        graph-estimated relative pose and by the ScanContext yaw, from the
+        host pose tables `poses` (fetch_pose_tables; read here if None).
+        The submap is assembled on the host, as in the reference; the
+        verification is one compiled program, its result one read. Returns
+        the loop measurement X_curr^-1 X_loop, or None if rejected."""
         lcfg = self.cfg.loop
         dev = self.backend_device
         poses_q, poses_t = self.fetch_pose_tables() if poses is None else poses
@@ -361,9 +365,26 @@ class SlamSystem:
             np.array([np.cos(-yaw / 2), 0.0, 0.0, np.sin(-yaw / 2)], np.float32),
         ])
         init_t = np.stack([C0[:3, 3].numpy().astype(np.float32), np.zeros(3, np.float32)])
-        inits = Pose(torch.from_numpy(init_q).to(dev), torch.from_numpy(init_t).to(dev))
+        inits = Pose(_device.upload(init_q, dev), _device.upload(init_t, dev))
 
-        res, _ = icp.verify_loop(
+        res, _ = self.verify_loop(src, submap, inits)
+        got = torch.cat([res.fitness.reshape(1), res.converged.reshape(1).to(torch.float32),
+                         res.transform.quat, res.transform.trans]).cpu()  # the one read
+        fit, ok = float(got[0]), bool(got[1] > 0)
+        # A degenerate solve gives NaN fitness, which passes a plain `>`.
+        if (not ok or not np.isfinite(fit) or fit > lcfg.fitness_threshold
+                or not bool(torch.isfinite(got[2:]).all())):
+            return None
+        # C aligns curr-local onto loop-local (C ~= T_loop^-1 T_curr), so the
+        # between measurement X_curr^-1 X_loop is C^-1 (from the device copy).
+        return se3.inverse(res.transform)
+
+    def verify_loop(self, src: np.ndarray, submap: np.ndarray, inits: Pose):
+        """icp.verify_loop on the host clouds src and submap, padded and
+        subsampled to the loop configuration's capacities and uploaded,
+        with the seeds `inits` [2]: (fine ICPResult, coarse fitness [2])."""
+        lcfg, dev = self.cfg.loop, self.backend_device
+        return icp.verify_loop(
             *_padded(src, lcfg.max_source_points, dev),
             *_padded(_linspace_take(src, lcfg.coarse_source_points),
                      lcfg.coarse_source_points, dev),
@@ -381,17 +402,6 @@ class SlamSystem:
             fine_iterations=lcfg.icp_max_iterations,
             transformation_eps=lcfg.transformation_eps,
         )
-        got = torch.cat([res.fitness.reshape(1), res.converged.reshape(1).to(torch.float32),
-                         res.transform.quat, res.transform.trans]).cpu()  # the one read
-        fit, ok = float(got[0]), bool(got[1] > 0)
-        q, t = got[2:6], got[6:9]
-        # A degenerate solve gives NaN fitness, which passes a plain `>`.
-        if (not ok or not np.isfinite(fit) or fit > lcfg.fitness_threshold
-                or not bool(torch.isfinite(got[2:]).all())):
-            return None
-        # C aligns curr-local onto loop-local (C ~= T_loop^-1 T_curr), so the
-        # between measurement X_curr^-1 X_loop is C^-1.
-        return se3.inverse(Pose(q.to(dev), t.to(dev)))
 
     # -- outputs -------------------------------------------------------------
 

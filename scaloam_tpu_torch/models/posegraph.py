@@ -6,7 +6,10 @@ trans 1e-4), ScanContext loop BetweenFactors with Cauchy(k) robust
 weights, and altitude-only GPS factors. Node 0 is frozen (the reference's
 1e-12-variance prior). Each GN step solves H d = -g by conjugate gradients
 without forming H: the matvec runs factor-wise, the chain's odometry
-factors by shifts and the loops by `index_add_`. The preconditioner is the
+factors by shifts and the loops by fixed-order segment sums
+(ops/kernels/segment_sum.py: each node adds its loop rows in ascending
+order, as the reference's `.at[].add` does, so an optimise on the card
+gives one answer for one input). The preconditioner is the
 exact block-tridiagonal chain (ops/blocktri.py) or, on the Woodbury tier,
 the Woodbury inverse of chain + low-rank loop terms. The solver choice is
 static, from the padded capacities and the PGOConfig thresholds.
@@ -24,9 +27,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from scaloam_tpu_torch import compiled
+from scaloam_tpu_torch import compiled, device as _device
 from scaloam_tpu_torch.config import PGOConfig
 from scaloam_tpu_torch.ops import blocktri, se3
+from scaloam_tpu_torch.ops.kernels import segment_sum
 from scaloam_tpu_torch.types import Pose
 
 
@@ -98,6 +102,7 @@ def grow(graph: PoseGraph, node_capacity_new: int | None = None,
         return torch.cat([a, a.new_zeros((extra,) + a.shape[1:])])
 
     dN, dL = nN - N, nL - L
+    compiled.drop(graph)  # no step replays this tier again
     return graph._replace(
         poses=pad_pose(graph.poses, dN), odom_poses=pad_pose(graph.odom_poses, dN),
         odom_rel=pad_pose(graph.odom_rel, dN), gps_z=pad(graph.gps_z, dN),
@@ -122,56 +127,83 @@ def ensure_loop_slot(graph: PoseGraph, n_loops_host: int) -> PoseGraph:
     return graph
 
 
-def _set(a: torch.Tensor, i: int, v) -> None:
-    """a[i] = v; a host scalar is written as a fill (no copy from host memory)."""
-    if isinstance(v, torch.Tensor):
-        a[i] = v.to(a.dtype)
-    else:
-        a[i] = np.asarray(v).item()
+def _row(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """a[i] for a one-element index tensor i, read on the device."""
+    return a.index_select(0, i)[0]
 
 
-def add_keyframe(graph: PoseGraph, odom_pose: Pose, gps_z, gps_valid, *,
-                 n_nodes: int | None = None, new_sequence: bool = False) -> PoseGraph:
-    """Append a node (growing the capacity tier on demand). The factor to
-    the previous node is the odometry increment; the new estimate is the
-    previous estimate composed with it (a warm start). A node that starts a
-    sequence anchors at its own odometry pose. Pass the host-tracked
-    `n_nodes` to skip reading graph.n_nodes from the device. The graph's
-    tables are written in place."""
-    n = int(graph.n_nodes) if n_nodes is None else n_nodes
-    graph = ensure_node_slot(graph, n)
-    i = min(n, node_capacity(graph) - 1)
-    prev = max(i - 1, 0)
-    prev_odom = Pose(graph.odom_poses.quat[prev], graph.odom_poses.trans[prev])
-    rel = se3.relative(prev_odom, odom_pose)
-    if n == 0 or new_sequence:
-        est = odom_pose
-    else:
-        est = se3.compose(Pose(graph.poses.quat[prev], graph.poses.trans[prev]), rel)
-    _set(graph.chain_break, i, bool(new_sequence))
-    _set(graph.poses.quat, i, est.quat)
-    _set(graph.poses.trans, i, est.trans)
-    _set(graph.odom_poses.quat, i, odom_pose.quat)
-    _set(graph.odom_poses.trans, i, odom_pose.trans)
-    _set(graph.odom_rel.quat, prev, rel.quat)
-    _set(graph.odom_rel.trans, prev, rel.trans)
-    _set(graph.gps_z, i, gps_z)
-    _set(graph.gps_valid, i, gps_valid)
+@compiled.jit(static_argnames=("new_sequence",), donate_argnums=(0,))
+def add_keyframe_jit(graph: PoseGraph, odom_pose: Pose, gps_z: torch.Tensor,
+                     gps_valid: torch.Tensor, new_sequence: bool = False) -> PoseGraph:
+    """Append a node at slot min(n_nodes, capacity - 1), read on the
+    device, and write the tables in place. The factor to the previous node
+    is the odometry increment; the new estimate is the previous estimate
+    composed with it (a warm start). A node that starts a sequence anchors
+    at its own odometry pose. Clamps at capacity: reserve a slot first
+    (ensure_node_slot with a host-tracked count), or call `add_keyframe`."""
+    i = torch.clamp(graph.n_nodes, max=node_capacity(graph) - 1).to(torch.int64).reshape(1)
+    first = (graph.n_nodes == 0) | new_sequence
+    prev = torch.clamp(i - 1, min=0)
+    rel = se3.relative(Pose(_row(graph.odom_poses.quat, prev), _row(graph.odom_poses.trans, prev)),
+                       odom_pose)
+    chained = se3.compose(Pose(_row(graph.poses.quat, prev), _row(graph.poses.trans, prev)), rel)
+    est = Pose(torch.where(first, odom_pose.quat, chained.quat),
+               torch.where(first, odom_pose.trans, chained.trans))
+    graph.chain_break.index_fill_(0, i, bool(new_sequence))
+    for table, at, value in ((graph.poses.quat, i, est.quat), (graph.poses.trans, i, est.trans),
+                             (graph.odom_poses.quat, i, odom_pose.quat),
+                             (graph.odom_poses.trans, i, odom_pose.trans),
+                             (graph.odom_rel.quat, prev, rel.quat),
+                             (graph.odom_rel.trans, prev, rel.trans),
+                             (graph.gps_z, i, gps_z), (graph.gps_valid, i, gps_valid)):
+        table.index_copy_(0, at, value.reshape((1,) + table.shape[1:]).to(table.dtype))
     graph.n_nodes.add_(1)
     return graph
 
 
-def add_loop(graph: PoseGraph, i, j, rel: Pose, *, n_loops: int | None = None) -> PoseGraph:
-    """Append a loop factor (growing the loop capacity on demand), in place."""
-    n = int(graph.n_loops) if n_loops is None else n_loops
-    graph = ensure_loop_slot(graph, n)
-    k = min(n, loop_capacity(graph) - 1)
-    _set(graph.loop_i, k, i)
-    _set(graph.loop_j, k, j)
-    _set(graph.loop_rel.quat, k, rel.quat)
-    _set(graph.loop_rel.trans, k, rel.trans)
+@compiled.jit(donate_argnums=(0,))
+def add_loop_jit(graph: PoseGraph, i: torch.Tensor, j: torch.Tensor, rel: Pose) -> PoseGraph:
+    """Append a loop factor at slot min(n_loops, capacity - 1), read on the
+    device, in place. Clamps at capacity: reserve with ensure_loop_slot
+    first, or call `add_loop`."""
+    k = torch.clamp(graph.n_loops, max=loop_capacity(graph) - 1).to(torch.int64).reshape(1)
+    for table, value in ((graph.loop_i, i), (graph.loop_j, j), (graph.loop_rel.quat, rel.quat),
+                         (graph.loop_rel.trans, rel.trans)):
+        table.index_copy_(0, k, value.reshape((1,) + table.shape[1:]).to(table.dtype))
     graph.n_loops.add_(1)
     return graph
+
+
+def _device_scalars(device, dtype, *values) -> list:
+    """Each value as a 0-dim tensor on `device`: tensors moved there, the
+    host numbers (as numpy `dtype`) in one pinned, asynchronous upload. A
+    compiled step keys on a host number's value, and a capture would bake
+    it into the graph."""
+    host = [k for k, v in enumerate(values) if not isinstance(v, torch.Tensor)]
+    up = _device.upload(np.array([values[k] for k in host], dtype), device) if host else None
+    out = [v.to(device) if isinstance(v, torch.Tensor) else None for v in values]
+    for n, k in enumerate(host):
+        out[k] = up[n]
+    return out
+
+
+def add_keyframe(graph: PoseGraph, odom_pose: Pose, gps_z, gps_valid, *,
+                 n_nodes: int | None = None, new_sequence: bool = False) -> PoseGraph:
+    """Grow the node tier on demand, then append (add_keyframe_jit). Pass
+    the host-tracked `n_nodes` to skip reading graph.n_nodes from the
+    device. The graph's tables are written in place."""
+    n = int(graph.n_nodes) if n_nodes is None else n_nodes
+    graph = ensure_node_slot(graph, n)
+    z, ok = _device_scalars(graph.gps_z.device, np.float32, gps_z, gps_valid)
+    return add_keyframe_jit(graph, odom_pose, z, ok, new_sequence=bool(new_sequence))
+
+
+def add_loop(graph: PoseGraph, i, j, rel: Pose, *, n_loops: int | None = None) -> PoseGraph:
+    """Grow the loop tier on demand, then append (add_loop_jit), in place."""
+    n = int(graph.n_loops) if n_loops is None else n_loops
+    graph = ensure_loop_slot(graph, n)
+    i, j = _device_scalars(graph.loop_i.device, np.int64, i, j)
+    return add_loop_jit(graph, i, j, rel)
 
 
 # ---------------------------------------------------------------------------
@@ -323,26 +355,38 @@ def _JtWJ(Ja, W, Jb):
     return torch.einsum("fri,fr,frj->fij", Ja, W, Jb)
 
 
-def _gradient_and_diag(factors, N: int):
+def loop_plans(graph: PoseGraph):
+    """The loop factors' rows sorted by their two nodes (segment_sum.plan),
+    once an optimise: the loop ends do not change within one. The padding
+    slots past n_loops, whose rows are zero, are left out."""
+    N = node_capacity(graph)
+    valid = torch.arange(loop_capacity(graph), device=graph.loop_i.device) < graph.n_loops
+    return tuple(segment_sum.plan(torch.where(valid, ends, N), N)
+                 for ends in (graph.loop_i, graph.loop_j))
+
+
+def _gradient_and_diag(factors, N: int, plans):
     """g = sum A^T W r, the chain-only block diagonal D (odometry + GPS),
-    and the loops' block-diagonal part D_loop, per node."""
+    and the loops' block-diagonal part D_loop, per node. The loop rows
+    are summed into their nodes in ascending order (`plans`,
+    loop_plans), as the reference's `.at[].add` sums them."""
     odom, loops, gps = factors
+    plan_i, plan_j = plans
     Wr_o = odom.W * odom.r
     g = _JtWr(odom.Ji, Wr_o) + _shift_down(_JtWr(odom.Jj, Wr_o))
     D = _JtWJ(odom.Ji, odom.W, odom.Ji) + _shift_down(_JtWJ(odom.Jj, odom.W, odom.Jj))
     g = g + _JtWr(gps.Ji, gps.W * gps.r)
     D = D + _JtWJ(gps.Ji, gps.W, gps.Ji)
     Wr_l = loops.W * loops.r
-    g = g.index_add(0, loops.i, _JtWr(loops.Ji, Wr_l))
-    g = g.index_add(0, loops.j, _JtWr(loops.Jj, Wr_l))
-    D_loop = torch.zeros_like(D)
-    D_loop.index_add_(0, loops.i, _JtWJ(loops.Ji, loops.W, loops.Ji))
-    D_loop.index_add_(0, loops.j, _JtWJ(loops.Jj, loops.W, loops.Jj))
+    g = segment_sum.add(g, _JtWr(loops.Ji, Wr_l), plan_i)
+    g = segment_sum.add(g, _JtWr(loops.Jj, Wr_l), plan_j)
+    D_loop = segment_sum.add(torch.zeros_like(D), _JtWJ(loops.Ji, loops.W, loops.Ji), plan_i)
+    D_loop = segment_sum.add(D_loop, _JtWJ(loops.Jj, loops.W, loops.Jj), plan_j)
     return g, D, D_loop
 
 
-def _hess_matvec(factors, v: torch.Tensor, damping_diag: torch.Tensor) -> torch.Tensor:
-    """H v without forming H."""
+def _hess_matvec(factors, v: torch.Tensor, damping_diag: torch.Tensor, plans) -> torch.Tensor:
+    """H v without forming H (the loop rows summed as in _gradient_and_diag)."""
     odom, loops, gps = factors
     out = damping_diag * v
     Av = torch.einsum("frc,fc->fr", odom.Ji, v) + torch.einsum("frc,fc->fr", odom.Jj, _shift_up(v))
@@ -352,8 +396,8 @@ def _hess_matvec(factors, v: torch.Tensor, damping_diag: torch.Tensor) -> torch.
     Avl = (torch.einsum("frc,fc->fr", loops.Ji, v[loops.i])
            + torch.einsum("frc,fc->fr", loops.Jj, v[loops.j]))
     WAvl = loops.W * Avl
-    out = out.index_add(0, loops.i, _JtWr(loops.Ji, WAvl))
-    return out.index_add(0, loops.j, _JtWr(loops.Jj, WAvl))
+    out = segment_sum.add(out, _JtWr(loops.Ji, WAvl), plans[0])
+    return segment_sum.add(out, _JtWr(loops.Jj, WAvl), plans[1])
 
 
 def _chain_factor(odom, D_blocks, damp, free_mask):
@@ -405,7 +449,7 @@ def _damping(D, D_loop, damping: float):
     return damping * torch.clamp(diag, min=1e-6) + 1e-8
 
 
-def _solve_cg(factors, g, D, D_loop, free_mask, damping: float, iters: int):
+def _solve_cg(factors, g, D, D_loop, free_mask, damping: float, iters: int, plans):
     """CG preconditioned by the exact chain Hessian (loops in the matvec only)."""
     damp = _damping(D, D_loop, damping)
     fm = free_mask[:, None]
@@ -414,7 +458,8 @@ def _solve_cg(factors, g, D, D_loop, free_mask, damping: float, iters: int):
     def precond(v):
         return torch.where(fm, blocktri.solve(chain, torch.where(fm, v, 0.0)), 0.0)
 
-    return _run_pcg(lambda v: _hess_matvec(factors, v, damp), g, free_mask, precond, iters)
+    return _run_pcg(lambda v: _hess_matvec(factors, v, damp, plans), g, free_mask, precond,
+                    iters)
 
 
 def _woodbury_setup(factors, D, D_loop, free_mask, damping: float):
@@ -473,14 +518,14 @@ def _wb_precond(wb, loops, free_mask):
     return precond
 
 
-def _solve_woodbury(factors, g, D, D_loop, free_mask, damping: float, iters: int,
+def _solve_woodbury(factors, g, D, D_loop, free_mask, damping: float, iters: int, plans,
                     wb=None):
     """CG preconditioned by the Woodbury inverse of the full damped Hessian
     H = C + V V^T; `wb` is an optional precomputed _woodbury_setup."""
     damp = _damping(D, D_loop, damping)
     if wb is None:
         wb = _woodbury_setup(factors, D, D_loop, free_mask, damping)
-    return _run_pcg(lambda v: _hess_matvec(factors, v, damp), g, free_mask,
+    return _run_pcg(lambda v: _hess_matvec(factors, v, damp, plans), g, free_mask,
                    _wb_precond(wb, factors[1], free_mask), iters)
 
 
@@ -506,20 +551,21 @@ def optimize(graph: PoseGraph, cfg: PGOConfig, cg_iters: int = 64) -> PoseGraph:
         cg_iters = min(cg_iters, cfg.cg_iters_large)
         gn_iters = min(gn_iters, cfg.gn_iterations_large)
 
+    plans = loop_plans(graph)
     wb = None
     if use_wb:
         factors0 = [_sanitize(f) for f in _linearize(graph, cfg)]
-        _, D0, D_loop0 = _gradient_and_diag(factors0, N)
+        _, D0, D_loop0 = _gradient_and_diag(factors0, N, plans)
         wb = _woodbury_setup(factors0, D0, D_loop0, free, cfg.lm_damping)
 
     for _ in range(gn_iters):
         factors = [_sanitize(f) for f in _linearize(graph, cfg)]
-        grad, D, D_loop = _gradient_and_diag(factors, N)
+        grad, D, D_loop = _gradient_and_diag(factors, N, plans)
         if use_wb:
             delta = _solve_woodbury(factors, grad, D, D_loop, free, cfg.lm_damping,
-                                    cfg.wb_cg_iters, wb=wb)
+                                    cfg.wb_cg_iters, plans, wb=wb)
         else:
-            delta = _solve_cg(factors, grad, D, D_loop, free, cfg.lm_damping, cg_iters)
+            delta = _solve_cg(factors, grad, D, D_loop, free, cfg.lm_damping, cg_iters, plans)
         new = se3.compose(graph.poses, se3.exp_se3(delta))
         graph = graph._replace(poses=Pose(
             torch.where(free[:, None], new.quat, graph.poses.quat),

@@ -1,8 +1,10 @@
 """The ScanContext database (counterpart of scaloam_tpu/models/scancontext.py).
 
 Preallocated descriptor and ring-key tables with a count, grown in
-capacity tiers (doubling). The appends write in place (`index_copy_`) into
-the tables the database owns; `SCManager` tracks the count on the host, so
+capacity tiers (doubling). The append and the detections are compiled
+steps (compiled.jit, as the reference's `jax.jit`s): the appends take the
+database donated and write in place (`index_copy_`) at a slot read on the
+device; `SCManager` tracks the count on the host and grows the tier, so
 appending never reads the device.
 """
 
@@ -12,6 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.config import ScanContextConfig
 from scaloam_tpu_torch.ops import scancontext as sc_ops
 
@@ -43,12 +46,15 @@ def grow_db(db: SCDatabase, new_capacity: int) -> SCDatabase:
     def pad(a):
         return torch.cat([a, a.new_zeros((new_capacity - K,) + a.shape[1:])])
 
+    compiled.drop(db)  # no step replays this tier again
     return SCDatabase(pad(db.descriptors), pad(db.ring_keys), db.count)
 
 
-def append_descriptor_(db: SCDatabase, sc: torch.Tensor) -> SCDatabase:
-    """Write sc at slot min(count, K-1) in place and advance the count.
-    Clamps past capacity: reserve a slot first (grow_db)."""
+@compiled.jit(donate_argnums=(0,))
+def append_descriptor_jit(db: SCDatabase, sc: torch.Tensor) -> SCDatabase:
+    """Write sc at slot min(count, K-1), read on the device, in place and
+    advance the count. Clamps past capacity: reserve a slot first
+    (grow_db, SCManager's host-tracked count) or call `append_descriptor`."""
     i = torch.clamp(db.count, max=db.descriptors.shape[0] - 1).reshape(1)
     db.descriptors.index_copy_(0, i, sc[None])
     db.ring_keys.index_copy_(0, i, sc_ops.ring_key(sc)[None])
@@ -64,18 +70,21 @@ def append_descriptor(db: SCDatabase, sc: torch.Tensor, *, count: int | None = N
     cap = db.descriptors.shape[0]
     if n >= cap:
         db = grow_db(db, max(2 * cap, n + 1))
-    return append_descriptor_(db, sc)
+    return append_descriptor_jit(db, sc)
 
 
+@compiled.jit(static_argnames=("cfg",), donate_argnums=(0,))
 def make_and_append(db: SCDatabase, xyz, mask, cfg: ScanContextConfig
                     ) -> Tuple[SCDatabase, torch.Tensor]:
+    """The descriptor of a keyframe cloud, appended (reserve a slot first)."""
     sc = sc_ops.make_descriptor(
         xyz, mask, num_ring=cfg.num_ring, num_sector=cfg.num_sector,
         max_radius=cfg.max_radius, lidar_height=cfg.lidar_height,
     )
-    return append_descriptor_(db, sc), sc
+    return append_descriptor_jit(db, sc), sc
 
 
+@compiled.jit(static_argnames=("cfg",))
 def detect_latest(db: SCDatabase, cfg: ScanContextConfig):
     """Loop detection for the most recent descriptor (indexed on the device
     by count - 1)."""
@@ -84,6 +93,7 @@ def detect_latest(db: SCDatabase, cfg: ScanContextConfig):
                               db.ring_keys, db.count, cfg, exclude_recent=True)
 
 
+@compiled.jit(static_argnames=("cfg", "exclude_recent"))
 def detect(db: SCDatabase, query_sc, cfg: ScanContextConfig, exclude_recent: bool = True):
     return sc_ops.detect_loop(query_sc, sc_ops.ring_key(query_sc), db.descriptors,
                               db.ring_keys, db.count, cfg, exclude_recent=exclude_recent)

@@ -5,12 +5,15 @@ Alignment runs in the loop keyframe's local frame: the source is the
 current keyframe in its own frame and the target a submap expressed
 relative to the loop keyframe, so the result C satisfies C ~= T_loop^-1
 T_curr and the loop factor is Z = C^-1. Each iteration solves a weighted
-Kabsch problem (a 3x3 SVD through torch.linalg.svd with the determinant
-sign fix; the determinant and the trimming quantile are written out so
-that they read nothing back). The iteration count is fixed; once the pose
-update falls below the transformation epsilon the pose freezes, through a
-flag that stays on the device, which gives the result of an early exit
-without reading the device in the loop.
+Kabsch problem: the rotation of the 3x3 SVD with the determinant sign fix
+comes from ops/kernels/kabsch.py (a CUDA kernel on the card, its plain
+version on the CPU), and the trimming quantile is written out, so nothing
+is read back. The iteration count is fixed; once the pose update falls
+below the transformation epsilon the pose freezes, through a flag that
+stays on the device, which gives the result of an early exit without
+reading the device in the loop. The three functions are compiled steps
+(compiled.jit) with the reference's static arguments; the inner two run
+inside verify_loop's program, as nested `jax.jit`s do.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from typing import NamedTuple
 
 import torch
 
+from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.ops import gridmap as gm
 from scaloam_tpu_torch.ops import se3, voxel
+from scaloam_tpu_torch.ops.kernels import kabsch
 from scaloam_tpu_torch.types import Pose
 
 _TRIM_BIG = 1e30  # keeps trimmed-out rows above any quantile
@@ -52,13 +57,6 @@ def _run_iters(one_iter, init: Pose, iterations: int, transformation_eps: float)
     return pose
 
 
-def _det3(m: torch.Tensor) -> torch.Tensor:
-    """Determinant of [..., 3, 3] by cofactors (no LU, no host read)."""
-    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
-            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
-            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]))
-
-
 def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     """Row quantiles of x [B, S] with linear interpolation between the two
     nearest order statistics, weighted as jnp.quantile weighs them -> [B, 1]."""
@@ -80,13 +78,7 @@ def _kabsch(source, w, tgt_pts, mask_q: bool) -> Pose:
     Q = tgt_pts - mu_t[:, None]
     if mask_q:
         Q = torch.where(w[..., None] > 0, Q, 0.0)
-    H = torch.matmul(P.mT, Q)  # [B, 3, 3]
-    U, _, Vt = torch.linalg.svd(H)
-    V = Vt.mT
-    d = torch.sign(_det3(torch.matmul(V, U.mT)))
-    ones = torch.ones_like(d)
-    D = torch.diag_embed(torch.stack([ones, ones, d], dim=-1))
-    R = torch.matmul(torch.matmul(V, D), U.mT)
+    R = kabsch.kabsch_rotation(torch.matmul(P.mT, Q))  # H = P^T Q [B, 3, 3]
     t = mu_t - torch.matmul(R, mu_s[..., None])[..., 0]
     return Pose(se3.mat_to_quat(R), t)
 
@@ -105,6 +97,7 @@ def _unbatch(res: ICPResult, squeeze: bool) -> ICPResult:
                      res.fitness[0], res.converged[0])
 
 
+@compiled.jit(static_argnames=("iterations", "trim_fraction", "transformation_eps"))
 def icp_point2point(source, source_mask, target, target_mask, init: Pose,
                     max_corr_dist: float = 150.0, iterations: int = 20,
                     trim_fraction: float = 0.75, transformation_eps: float = 1e-6
@@ -138,6 +131,8 @@ def icp_point2point(source, source_mask, target, target_mask, init: Pose,
     return _unbatch(ICPResult(pose, fitness, n_ok > 10), squeeze)
 
 
+@compiled.jit(static_argnames=("gx", "gy", "gz", "cell_size", "reach", "iterations",
+                               "transformation_eps"))
 def icp_point2point_grid(source, source_mask, grid: gm.GridMap, gx: int, gy: int,
                          gz: int, cell_size: float, reach: float, init: Pose,
                          iterations: int = 20, transformation_eps: float = 1e-6
@@ -171,6 +166,9 @@ def icp_point2point_grid(source, source_mask, grid: gm.GridMap, gx: int, gy: int
     return _unbatch(ICPResult(pose, fitness, converged), squeeze)
 
 
+@compiled.jit(static_argnames=(
+    "voxel_size", "sub_capacity", "gx", "gy", "gz", "cell_size", "cell_cap", "dedup_radius",
+    "reach", "max_corr_dist", "coarse_iterations", "fine_iterations", "transformation_eps"))
 def verify_loop(src, src_mask, c_src, c_src_mask, c_tgt, c_tgt_mask, submap,
                 submap_mask, inits: Pose, *, voxel_size: float, sub_capacity: int,
                 gx: int, gy: int, gz: int, cell_size: float, cell_cap: int,

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from scaloam_tpu_torch.ops import f32
-from scaloam_tpu_torch.ops.kernels import f32ops
+from scaloam_tpu_torch.ops.kernels import f32ops, segment_sum
 
 BIG = 1e30  # sentinel distance for masked pairs
 _INT32_MAX = 2**31 - 1
@@ -123,11 +123,13 @@ def voxel_downsample(
     seg = torch.cumsum(new_voxel.to(torch.int64), 0) - 1  # first voxel -> 0
     seg = torch.clamp(torch.where(mask_s, seg, capacity), max=capacity)  # overflow bin
 
-    ones = mask_s.to(torch.float32)
     vals = xyz[order] if extra is None else torch.cat([xyz, extra], dim=1)[order]
-    sums = vals.new_zeros((capacity + 1, vals.shape[1])).index_add_(0, seg, vals * ones[:, None])
-    counts = ones.new_zeros(capacity + 1).index_add_(0, seg, ones)[:capacity]
-    out = sums[:capacity] / torch.clamp(counts, min=1.0)[:, None]
+    # Each voxel's points summed one after another in sort order, as the
+    # reference's scatter sums them (float atomics on the card would not).
+    plan = segment_sum.plan(seg, capacity)  # the overflow bin left out
+    sums = segment_sum.add(vals.new_zeros((capacity, vals.shape[1])), vals, plan)
+    counts = (plan.starts[1:] - plan.starts[:-1]).to(torch.float32)
+    out = sums / torch.clamp(counts, min=1.0)[:, None]
     return out[:, :3], counts > 0, (out[:, 3:] if extra is not None else None)
 
 

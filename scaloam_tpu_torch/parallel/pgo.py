@@ -4,7 +4,8 @@ axis (counterpart of scaloam_tpu/parallel/pgo.py).
 The poses are replicated (6N floats). Each rank linearises its slice of
 the odometry and GPS factors (nodes [r * shard, (r + 1) * shard)) and of
 the loop factors, scatter-adds the gradient, the diagonal blocks and the
-chain coupling blocks by node, and one all_reduce per GN iteration sums
+chain coupling blocks by node (each node's rows in ascending order,
+ops/kernels/segment_sum.py), and one all_reduce per GN iteration sums
 them; the CG matvec is scattered the same way and all_reduced once per CG
 iteration. The cyclic-reduction chain preconditioner is then factored and
 applied replicated, on every rank alike. Capacities that the mesh does
@@ -26,37 +27,46 @@ import torch.distributed as dist
 from scaloam_tpu_torch.config import PGOConfig
 from scaloam_tpu_torch.models import posegraph as pg
 from scaloam_tpu_torch.ops import blocktri, se3
+from scaloam_tpu_torch.ops.kernels import segment_sum
 from scaloam_tpu_torch.parallel import mesh as mesh_mod
 from scaloam_tpu_torch.parallel.mesh import KF_AXIS
 from scaloam_tpu_torch.types import Pose
 
 
-def _scatter_blocks(factors, N: int):
+def _plans(factors, N: int):
+    """Each factor kind's rows sorted by their i and j nodes
+    (segment_sum.plan), once an optimise; the invalid rows (zero) left out."""
+    return [tuple(segment_sum.plan(torch.where(f.valid, ends, N), N) for ends in (f.i, f.j))
+            for f in factors]
+
+
+def _scatter_blocks(factors, N: int, plans):
     """This rank's gradient [N, 6], diagonal blocks [N, 6, 6] (all factor
-    kinds) and odometry coupling blocks B [N, 6, 6], scattered by node."""
+    kinds) and odometry coupling blocks B [N, 6, 6], scattered by node,
+    each node's rows added in ascending order."""
     dev = factors[0].r.device
     g = torch.zeros((N, 6), dtype=torch.float32, device=dev)
     D = torch.zeros((N, 6, 6), dtype=torch.float32, device=dev)
-    for f in factors:
+    for f, (pi, pj) in zip(factors, plans):
         Wr = f.W * f.r
-        g.index_add_(0, f.i, pg._JtWr(f.Ji, Wr))
-        g.index_add_(0, f.j, pg._JtWr(f.Jj, Wr))
-        D.index_add_(0, f.i, pg._JtWJ(f.Ji, f.W, f.Ji))
-        D.index_add_(0, f.j, pg._JtWJ(f.Jj, f.W, f.Jj))
+        g = segment_sum.add(g, pg._JtWr(f.Ji, Wr), pi)
+        g = segment_sum.add(g, pg._JtWr(f.Jj, Wr), pj)
+        D = segment_sum.add(D, pg._JtWJ(f.Ji, f.W, f.Ji), pi)
+        D = segment_sum.add(D, pg._JtWJ(f.Jj, f.W, f.Jj), pj)
     odom = factors[0]
-    B = torch.zeros_like(D).index_add_(0, odom.i, pg._JtWJ(odom.Ji, odom.W, odom.Jj))
+    B = segment_sum.add(torch.zeros_like(D), pg._JtWJ(odom.Ji, odom.W, odom.Jj), plans[0][0])
     return g, D, B
 
 
-def _matvec(factors, v, damp, group):
+def _matvec(factors, v, damp, group, plans):
     """H v summed over the ranks: the damping is taken out before the
     all_reduce and added back after it, so it counts once."""
     out = damp * v
-    for f in factors:
+    for f, (pi, pj) in zip(factors, plans):
         Av = torch.einsum("frc,fc->fr", f.Ji, v[f.i]) + torch.einsum("frc,fc->fr", f.Jj, v[f.j])
         WAv = f.W * Av
-        out = out.index_add(0, f.i, pg._JtWr(f.Ji, WAv))
-        out = out.index_add(0, f.j, pg._JtWr(f.Jj, WAv))
+        out = segment_sum.add(out, pg._JtWr(f.Ji, WAv), pi)
+        out = segment_sum.add(out, pg._JtWr(f.Jj, WAv), pj)
     out = out - damp * v
     dist.all_reduce(out, group=group)
     return out + damp * v
@@ -78,9 +88,12 @@ def optimize_sharded(graph: pg.PoseGraph, cfg: PGOConfig, mesh,
     ks = torch.arange(N, device=dev)
     free = (ks > 0) & (ks < graph.n_nodes)
     fm = free[:, None]
+    plans = None
     for _ in range(cfg.gn_iterations):
         factors = [pg._sanitize(f) for f in pg._linearize(graph, cfg, k, slots)]
-        g, D, B = _scatter_blocks(factors, N)
+        if plans is None:  # the factors' nodes stay the same from here on
+            plans = _plans(factors, N)
+        g, D, B = _scatter_blocks(factors, N, plans)
         summed = torch.cat([g.reshape(-1), D.reshape(-1), B.reshape(-1)])
         dist.all_reduce(summed, group=group)
         g, D, B = summed.split([N * 6, N * 36, N * 36])
@@ -91,8 +104,8 @@ def optimize_sharded(graph: pg.PoseGraph, cfg: PGOConfig, mesh,
         def precond(v):
             return torch.where(fm, blocktri.solve(chain, torch.where(fm, v, 0.0)), 0.0)
 
-        delta = pg._run_pcg(lambda v: _matvec(factors, v, damp, group), g, free, precond,
-                            cg_iters)
+        delta = pg._run_pcg(lambda v: _matvec(factors, v, damp, group, plans), g, free,
+                            precond, cg_iters)
         new = se3.compose(graph.poses, se3.exp_se3(delta))
         graph = graph._replace(poses=Pose(torch.where(fm, new.quat, graph.poses.quat),
                                           torch.where(fm, new.trans, graph.poses.trans)))

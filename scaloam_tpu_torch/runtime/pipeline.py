@@ -438,16 +438,21 @@ class AsyncSlamPipeline:
     def _precompile_stages(self) -> None:
         """On the calling thread, pay what a worker would otherwise pay on
         its first frame: build and load the kernel libraries, run two
-        throwaway frames on throwaway state and one throwaway optimise of
-        a two-node graph at the system graph's capacities. On the card
+        throwaway frames on throwaway state, one throwaway optimise of a
+        two-node graph with a loop at the system graph's capacities, and
+        the keyframe backend's programs at the system's tiers. On the card
         these calls capture the step programs (compiled.py: the first
-        frame's and the later frames', the keyframe prep, the optimise at
-        the graph's tier) before any worker starts; a tier the graph grows
-        into later is captured by the loop thread, in thread-local capture
-        mode, so the front end's concurrent work cannot break it. The
-        process's first optimise also carries seconds of one-time
-        torch.func / library set-up; paid by the loop thread under the
-        system lock it would stall ingest long enough to overflow kf_q."""
+        frame's and the later frames', the keyframe prep, the graph's
+        appends and the optimise at the graph's tier, ScanContext's append
+        and detection, the loop verification) before any worker starts; a
+        tier the graph grows into later is captured by the loop thread, in
+        thread-local capture mode, so the front end's concurrent work
+        cannot break it. The process's first optimise also carries seconds
+        of one-time torch.func / library set-up, and a first loop
+        verification, eager and then captured (0.9-1.1 s on an H100 beside
+        the workers); paid by the loop thread under the system lock they
+        would stall ingest long enough to overflow kf_q, or skip a
+        detection."""
         from scaloam_tpu_torch.ops.kernels import _build
 
         cfg, dev = self.cfg, self.device
@@ -477,7 +482,18 @@ class AsyncSlamPipeline:
                           initial_loops=pg.loop_capacity(graph))
         for k in range(2):
             g = pg.add_keyframe(g, Pose.identity(bdev), 0.0, False, n_nodes=k)
+        g = pg.add_loop(g, 1, 0, Pose.identity(bdev), n_loops=0)
         pg.optimize(g, cfg.pgo)
+        # The keyframe backend's programs at the system's tiers: ScanContext
+        # on a throwaway database, a loop verification of empty clouds.
+        db = scm.init_db(cfg.scancontext, bdev, initial=self.sys.sc.db.descriptors.shape[0])
+        cap = cfg.pgo.keyframe_cloud_capacity
+        db, _ = scm.make_and_append(db, torch.zeros((cap, 3), device=bdev),
+                                    torch.zeros(cap, dtype=torch.bool, device=bdev),
+                                    cfg.scancontext)
+        scm.detect_latest(db, cfg.scancontext)
+        empty = np.zeros((0, 3), np.float32)
+        self.sys.verify_loop(empty, empty, Pose.identity(bdev, (2,)))
 
     def _streams(self) -> List:
         return _unique(self._fe_stream, self._rd_stream, self._bk_stream)

@@ -50,13 +50,7 @@ class LidarScan(NamedTuple):
         xyz[:n] = points[:n, :3]
         mask = np.zeros((capacity,), dtype=bool)
         mask[:n] = True
-        xyz_t, mask_t = torch.from_numpy(xyz), torch.from_numpy(mask)
-        if dev.type == "cuda":
-            # From pinned memory the upload is asynchronous: the host does
-            # not wait for the device (the caching host allocator keeps the
-            # buffers until the copies have run).
-            xyz_t, mask_t = xyz_t.pin_memory(), mask_t.pin_memory()
-        return LidarScan(xyz_t.to(dev, non_blocking=True), mask_t.to(dev, non_blocking=True))
+        return LidarScan(_device.upload(xyz, dev), _device.upload(mask, dev))
 
 
 class RangeImage(NamedTuple):

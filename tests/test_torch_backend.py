@@ -5,12 +5,17 @@ solve, all on the CPU at small sizes (the pose graph: test_torch_posegraph.py).
 Tolerances: se3 within 1e-5; k-NN indices equal (planted ties included);
 ScanContext descriptors equal, distances within 1e-5 at the same shift;
 blocktri within 1e-4 relative of the JAX solve and of a numpy f64 dense
-solve; ICP quaternions within 1e-4 (sign aligned), translations within
+solve; the Kabsch rotation (ops/kernels/kabsch.py, a fixed-sweep Jacobi)
+within 1e-5 (Frobenius) of the reference's `jnp.linalg.svd` solve under
+`jax.jit`; ICP quaternions within 1e-4 (sign aligned), translations within
 1e-3 m, fitness within 1e-4, `converged` equal.
 """
 
+import functools
+
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -26,7 +31,9 @@ from scaloam_tpu_torch import config as tconfig
 from scaloam_tpu_torch.models import scancontext as tscm
 from scaloam_tpu_torch.ops import blocktri as tbt, gridmap as tgm, icp as ticp
 from scaloam_tpu_torch.ops import scancontext as tsc, se3 as tse3, voxel as tvox
+from scaloam_tpu_torch.ops.kernels import kabsch as tkabsch
 from scaloam_tpu_torch.types import Pose as TPose
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 Q_TOL, T_TOL = 1e-4, 1e-3
 CPU = "cpu"
@@ -310,6 +317,53 @@ def test_blocktri_solve_matches_reference_and_dense(n, r):
 # ---------------------------------------------------------------------------
 # ICP
 # ---------------------------------------------------------------------------
+
+
+@jax.jit
+@functools.partial(jax.vmap)
+def _reference_kabsch(H):
+    """The rotation of the reference's ICP step (scaloam_tpu/ops/icp.py:122-126)."""
+    U, _, Vt = jnp.linalg.svd(H)
+    d = jnp.sign(jnp.linalg.det(jnp.matmul(Vt.T, U.T, precision=jax.lax.Precision.HIGHEST)))
+    D = jnp.diag(jnp.array([1.0, 1.0, 1.0])).at[2, 2].set(d)
+    return Vt.T @ D @ U.T
+
+
+def _kabsch_inputs(case, n=300):
+    """n matrices H [n, 3, 3] of one kind: Gaussian entries at scales from
+    0.1 to 1e4; near-planar (s3 = 1e-6 s1); det < 0 (the sign fix flips the
+    smallest direction); rank 2 (s3 = 0); and H = 0 (no point matched).
+    The reflected singular values are kept 0.1 s1 apart: with det < 0 the
+    rotation moves by 1/(s2 - s3) per unit of rounding, so where s2 and s3
+    nearly meet float32 LAPACK itself departs from a float64 solve by more
+    than the tolerance."""
+    rng = np.random.default_rng(len(case))
+    if case == "zero":
+        return np.zeros((8, 3, 3), np.float32)
+    if case == "random":
+        return (rng.normal(size=(n, 3, 3)) * rng.uniform(0.1, 1e4, (n, 1, 1))).astype(np.float32)
+    U, V = (np.linalg.qr(rng.normal(size=(n, 3, 3)))[0] for _ in range(2))
+    s = np.sort(rng.uniform(0.1, 1.0, (n, 3)), axis=1)[:, ::-1] * rng.uniform(1, 1e3, (n, 1))
+    if case == "reflected":
+        s = s[:, :1] * np.array([1.0, 0.6, 0.2]) * rng.uniform(0.8, 1.0, (n, 3))
+        s = np.sort(s, axis=1)[:, ::-1]
+    s[:, 2] = {"planar": 1e-6 * s[:, 0], "rank2": 0.0}.get(case, s[:, 2])
+    H = U @ (s[:, :, None] * np.swapaxes(V, 1, 2))
+    if case == "reflected":
+        H *= np.where(np.linalg.det(H) > 0, -1.0, 1.0)[:, None, None]
+    return H.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["random", "planar", "reflected", "rank2", "zero"])
+def test_kabsch_rotation_matches_reference(case):
+    H = _kabsch_inputs(case)
+    want = np.asarray(_reference_kabsch(jnp.asarray(H)))
+    got = tkabsch.kabsch_rotation(torch.from_numpy(H)).numpy()
+    assert np.isfinite(got).all()
+    assert np.linalg.norm(got - want, axis=(1, 2)).max() < 1e-5
+    np.testing.assert_allclose(np.linalg.det(got), 1.0, atol=1e-5)
+    if case == "reflected":
+        assert (np.linalg.det(H) < 0).all()
 
 
 def _icp_clouds(rng, n_tgt, n_src, w, t):

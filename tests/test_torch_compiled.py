@@ -10,10 +10,12 @@ tests/test_torch_runtime.py).
   port captures on the card: the front end's step to the gate (the first
   frame's program and the later frames'), the keyframe prep, the sync
   driver's three stages (odometry on both keys), `gate_step`, `optimize`
-  at a chain-CG and a Woodbury tier and `multiseq` at two sequences. The
-  kernels' custom ops (EXEMPT) pass as single calls: on the card each is
-  one kernel launch; on the CPU each runs its plain version, which the
-  mode does not see into.
+  at a chain-CG and a Woodbury tier, `multiseq` at two sequences, and the
+  keyframe backend: ICP's `verify_loop`, ScanContext's `make_and_append`
+  and `detect_latest`, the graph's `add_keyframe_jit` (also starting a
+  sequence) and `add_loop_jit`. The kernels' custom ops (EXEMPT) pass as
+  single calls: on the card each is one kernel launch; on the CPU each
+  runs its plain version, which the mode does not see into.
 - Cache key: with the capture replaced by a counting stub, a new capture
   happens on a new static argument, a new shape or tier and a flipped
   `initialized`, and on nothing else.
@@ -28,6 +30,9 @@ tests/test_torch_runtime.py).
   of one tensor layout read one set of input buffers, in which the graph
   leaves the donated state (an output passing a donated input through
   still returns the old value).
+- Tiers: appends within one capacity tier share one capture and land in
+  consecutive slots read on the device; growing a table past its tier
+  drops every key that held the old tier's layout.
 
 The CUDA-only cases (replay against `compiled.disabled()` for each
 program on the card) are in tests/test_torch_cuda.py.
@@ -46,7 +51,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import __graft_entry__
 from scaloam_tpu_torch import compiled, config as tconfig
 from scaloam_tpu_torch.models import frontend, mapping, odometry, pipeline, posegraph as pg
-from scaloam_tpu_torch.ops import features
+from scaloam_tpu_torch.models import scancontext as scm
+from scaloam_tpu_torch.ops import features, icp
 from scaloam_tpu_torch.parallel import multiseq
 from scaloam_tpu_torch.types import FeatureCloud, LidarScan, Pose, RangeImage, ScanFeatures
 from scaloam_tpu_torch.utils import synthetic
@@ -80,7 +86,7 @@ def one_thread():
 # The kernels' custom ops: one launch each on the card.
 EXEMPT = ("scaloam::select_features", "scaloam::associate_and_solve",
           "scaloam::gn_solve_prepared", "scaloam::sq_dist", "scaloam::sum3_sq",
-          "scaloam::atan2f")
+          "scaloam::atan2f", "scaloam::kabsch", "scaloam::segment_sum")
 # Ops that read the device from the host whatever their arguments.
 HOST_READS = ("aten::_local_scalar_dense", "aten::is_nonzero", "aten::nonzero",
               "aten::masked_select", "aten::_unique", "aten::_unique2", "aten::unique_dim",
@@ -167,9 +173,61 @@ def _chain(n, n_loops, cfg):
     return g
 
 
+def _verify_inputs():
+    """verify_loop's arguments at small sizes: a submap, a source cloud
+    that is part of it moved by a small rotation and shift, both seeds."""
+    rng = np.random.default_rng(6)
+    tgt = rng.uniform(-12, 12, (2048, 3)).astype(np.float32)
+    tgt[:, 2] *= 0.2
+    c, s = np.cos(0.1), np.sin(0.1)
+    src = (tgt[:512] - [0.5, -0.3, 0.0]) @ np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]], np.float32)
+    src = torch.from_numpy(src.astype(np.float32))
+    tgt, ones = torch.from_numpy(tgt), lambda n: torch.ones(n, dtype=torch.bool)
+    inits = Pose(torch.tensor([[1.0, 0, 0, 0], [np.cos(-0.05), 0, 0, np.sin(-0.05)]],
+                              dtype=torch.float32), torch.zeros((2, 3)))
+    kw = dict(voxel_size=0.4, sub_capacity=2048, gx=16, gy=16, gz=16, cell_size=2.0,
+              cell_cap=16, dedup_radius=0.4, reach=2.0, max_corr_dist=150.0,
+              coarse_iterations=3, fine_iterations=3, transformation_eps=1e-6)
+    return (src, ones(512), src[::4].clone(), ones(128), tgt[::4].clone(), ones(512), tgt,
+            ones(2048), inits), kw
+
+
+def _sc_db(n):
+    """A ScanContext database holding n random descriptors."""
+    db = scm.init_db(CFG.scancontext, "cpu", initial=16)
+    for d in np.random.default_rng(n).uniform(0, 3, (n, CFG.scancontext.num_ring,
+                                                     CFG.scancontext.num_sector)):
+        db = scm.append_descriptor(db, torch.from_numpy(d.astype(np.float32)))
+    return db
+
+
+def _backend_program(name, drive):
+    """The keyframe backend's programs, their inputs made beforehand."""
+    full = drive["feats"].full
+    if name == "verify_loop":
+        args, kw = _verify_inputs()
+        return lambda: icp.verify_loop(*args, **kw)
+    if name == "sc_make_and_append":
+        db = _sc_db(3)
+        kf_xyz, kf_mask, _ = pipeline._prepare_keyframe(full.xyz, full.mask, full.rel_time, CFG)
+        return lambda: scm.make_and_append(db, kf_xyz, kf_mask, CFG.scancontext)
+    if name == "sc_detect_latest":
+        db = _sc_db(CFG.scancontext.num_exclude_recent + 4)
+        return lambda: scm.detect_latest(db, CFG.scancontext)
+    graph = _chain(8, 2, CFG.pgo)
+    pose = Pose(torch.tensor([0.0, 0.6, 0.0, 0.8]), torch.tensor([8.0, 0.5, 0.2]))
+    if name == "add_loop":
+        return lambda: pg.add_loop_jit(graph, torch.tensor(7), torch.tensor(1), pose)
+    z, ok = torch.tensor(1.5), torch.tensor(1.0)
+    return lambda: pg.add_keyframe_jit(graph, pose, z, ok,
+                                       new_sequence=name == "add_keyframe_new_sequence")
+
+
 def _program(name, drive):
     """The call of one captured program, its inputs made beforehand."""
     s0, s1, feats = drive["state0"], drive["state1"], drive["feats"]
+    if name in BACKEND:
+        return _backend_program(name, drive)
     scan = _scan(drive["scans"][1])
     full = feats.full
     if name.startswith("optimize"):
@@ -198,9 +256,11 @@ def _program(name, drive):
     }[name]
 
 
+BACKEND = ("verify_loop", "sc_make_and_append", "sc_detect_latest", "add_keyframe",
+           "add_keyframe_new_sequence", "add_loop")
 PROGRAMS = ("frontend_body_first", "frontend_body_later", "keyframe_prep", "extract_features",
             "odometry_first", "odometry_later", "mapping", "gate", "optimize_chain_cg",
-            "optimize_woodbury", "frame_batch_b2")
+            "optimize_woodbury", "frame_batch_b2") + BACKEND
 
 
 @pytest.mark.parametrize("name", PROGRAMS)
@@ -213,6 +273,10 @@ def test_captured_programs_read_nothing_from_the_device(drive, name):
                if isinstance(x, torch.Tensor) and x.is_floating_point())
     if name in ("frontend_body_later", "odometry_later"):
         assert "scaloam::associate_and_solve" in guard.exempt_seen
+    if name == "verify_loop":
+        assert "scaloam::kabsch" in guard.exempt_seen
+    if name.startswith("optimize"):
+        assert "scaloam::segment_sum" in guard.exempt_seen
     assert guard.exempt_seen <= set(EXEMPT)
 
 
@@ -247,6 +311,8 @@ def _features(n):
 
 def test_a_new_capture_only_on_a_new_key(monkeypatch):
     captured = []
+    cfg = CFG.pgo
+    g16, g16b, g32 = _chain(16, 4, cfg), _chain(16, 4, cfg), _chain(32, 4, cfg)
 
     def first_call(self, key, arguments, dynamic, per_arg, leaves):
         captured.append(self.__name__)
@@ -263,8 +329,6 @@ def test_a_new_capture_only_on_a_new_key(monkeypatch):
         call()
         return len(captured) - n
 
-    cfg = CFG.pgo
-    g16, g16b, g32 = _chain(16, 4, cfg), _chain(16, 4, cfg), _chain(32, 4, cfg)
     g16b.poses.trans.add_(1.0)
     assert new_captures(lambda: pg.optimize(g16, cfg)) == 1
     assert new_captures(lambda: pg.optimize(g16, cfg)) == 0
@@ -322,6 +386,9 @@ class _Stream:
 class _Event:
     def record(self, stream=None):
         pass
+
+    def query(self):
+        return True
 
 
 @pytest.fixture
@@ -490,3 +557,43 @@ def test_donated_tensors_sharing_memory_come_back_apart(stand_in_graphs):
     (a2, b2), = bump((a, b))
     assert a2 is a and b2 is b
     assert torch.equal(a, torch.full((2,), 2.0)) and torch.equal(b, torch.full((2,), 4.0))
+
+
+def test_appends_share_a_capture_per_tier_and_growth_drops_the_tier(stand_in_graphs,
+                                                                    monkeypatch):
+    """Five keyframes appended through the host wrapper at one tier: one
+    capture, slots 0-4 (read on the device at each replay). Growing the
+    graph past the tier drops every key that held its layout, in each
+    step, while another tier's keys stay."""
+    for step in (pg.add_keyframe_jit, pg.optimize):
+        for attr, value in (("_cache", {}), ("_buffers", {}), ("_pools", {}), ("_done", {}),
+                            ("_retired", []), ("captures", 0)):
+            monkeypatch.setattr(step, attr, value)
+    cfg = dataclasses.replace(CFG.pgo, max_keyframes=64)
+    quat = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    g = pg.init_graph(cfg, "cpu", initial_nodes=8, initial_loops=4)
+    other = _chain(16, 4, cfg)  # a tier that is not outgrown
+    pg.optimize(other, cfg)
+    assert pg.add_keyframe_jit.captures == 1
+    for k in range(5):
+        g = pg.add_keyframe(g, Pose(quat, torch.tensor([float(k), 0.0, 0.0])), 0.5 * k, True,
+                            n_nodes=k)
+    assert pg.add_keyframe_jit.captures == 2 and int(g.n_nodes) == 5
+    np.testing.assert_array_equal(g.poses.trans[:, 0].numpy(), [0, 1, 2, 3, 4, 0, 0, 0])
+    np.testing.assert_array_equal(g.gps_z.numpy(), [0, 0.5, 1, 1.5, 2, 0, 0, 0])
+    assert g.gps_valid[:5].all() and not g.gps_valid[5:].any()
+    pg.optimize(g, cfg)
+    assert len(pg.optimize._cache) == 2
+    old = compiled._leaf_key(g.gps_z)
+    for k in range(5, 9):  # the ninth node grows the graph to 16 nodes
+        g = pg.add_keyframe(g, Pose(quat, torch.tensor([float(k), 0.0, 0.0])), 0.0, False,
+                            n_nodes=k)
+    assert pg.node_capacity(g) == 16 and int(g.n_nodes) == 9
+    np.testing.assert_array_equal(g.poses.trans[:9, 0].numpy(), np.arange(9))
+    for step in (pg.add_keyframe_jit, pg.optimize):
+        assert not any(old in key[2] for key in step._cache)
+        assert not any(old in layout for layout in step._buffers)
+        assert not step._retired  # the stand-in's replays have all run
+    # The 16-node tier's keys (`other`'s) stay, and serve the grown graph.
+    assert pg.add_keyframe_jit.captures == 2 and len(pg.add_keyframe_jit._cache) == 1
+    assert len(pg.optimize._cache) == 1

@@ -15,10 +15,15 @@ problem runs the same code in its own blocks or cluster, and meet the
 same tolerances against the plain version; multiseq.frame_batch on the
 card launches each kernel once a batched frame. The rounding kernels
 (csrc/f32ops.cu: sq_dist, sum3_sq, atan2) equal their plain versions bit
-for bit, on the card and on the CPU, and vmapped in one launch. Each
-program the port captures as a CUDA graph (scaloam_tpu_torch/compiled.py)
-replays what it computes eagerly under compiled.disabled(): bit for bit
-where two eager calls agree bit for bit.
+for bit, on the card and on the CPU, and vmapped in one launch. The
+Kabsch kernel (csrc/kabsch.cu) within 1e-6 of its plain version on the
+same batches (the same IEEE operations in the same order), the segment
+sum (csrc/segment_sum.cu) bit for bit. Two eager optimises of one graph
+at 4096 nodes / 64 loops and at 8192 / 256 are bit-equal (the loop
+factors sum in one fixed order). Each program the port captures as a
+CUDA graph (scaloam_tpu_torch/compiled.py) replays what it computes
+eagerly under compiled.disabled(): bit for bit where two eager calls
+agree bit for bit.
 """
 
 import dataclasses
@@ -392,12 +397,75 @@ def test_rounding_kernels_fold_a_vmapped_batch_into_one_launch(dev):
 
 
 # ---------------------------------------------------------------------------
+# the keyframe backend's kernels: Kabsch rotation, fixed-order segment sum
+# ---------------------------------------------------------------------------
+
+
+def test_kabsch_kernel_matches_plain(dev):
+    """Random, near-planar, reflected, rank-2 and zero H (chip_smoke's cases)."""
+    import chip_smoke
+    from scaloam_tpu_torch.ops.kernels import kabsch
+
+    H = torch.cat(list(chip_smoke.kabsch_cases(torch, dev).values()))
+    before = kabsch.kabsch_rotation.launches
+    got = kabsch.kabsch_rotation(H)
+    assert kabsch.kabsch_rotation.launches == before + 1
+    plain = kabsch.kabsch_plain(H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - plain).abs().max()) <= 1e-6
+    eye = torch.eye(3, device=dev)
+    assert float((got @ got.mT - eye).abs().max()) < 1e-5
+    assert torch.equal(got[-8:], eye.expand(8, 3, 3))  # H = 0
+    batched = torch.func.vmap(kabsch.kabsch_rotation)(H.reshape(2, -1, 3, 3))
+    assert torch.equal(batched.reshape(-1, 3, 3), got)
+
+
+def test_segment_sum_kernel_matches_plain(dev):
+    from scaloam_tpu_torch.ops.kernels import segment_sum
+
+    rng = np.random.default_rng(1)
+    for n, R, c in ((64, 300, 6), (4096, 512, 36), (10, 0, 6)):
+        idx = torch.from_numpy(rng.integers(0, n, R) if n > 10 else np.zeros(R, np.int64))
+        base = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+        rows = torch.from_numpy((rng.normal(size=(R, c)) * 10.0 ** rng.integers(-3, 4, (R, 1)))
+                                .astype(np.float32))
+        plan_cpu = segment_sum.plan(idx, n)
+        want = segment_sum.add(base, rows, plan_cpu)
+        plan = segment_sum.plan(idx.to(dev), n)
+        before = segment_sum.add.launches
+        got = segment_sum.add(base.to(dev), rows.to(dev), plan)
+        assert segment_sum.add.launches == before + (1 if n * c else 0)
+        plain = segment_sum.add_plain(base.to(dev), rows.to(dev), *plan)
+        assert torch.equal(got, plain) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("nodes,loops", [(4096, 64), (8192, 256)])
+def test_eager_optimise_is_reproducible(dev, nodes, loops):
+    """Two eager optimises of one graph give the same poses bit for bit:
+    the loop factors reach their nodes in one fixed order (no atomics)."""
+    import chip_smoke
+    from scaloam_tpu_torch import compiled
+    from scaloam_tpu_torch.types import Pose
+
+    _, oq, ot, lps = chip_smoke.circle_chain(nodes, loops, seed=nodes)
+    cfg = chip_smoke.chain_pgo_cfg(config.PGOConfig(), nodes, loops)
+    with compiled.disabled():
+        runs = [pg.optimize(chip_smoke.build_graph(torch, pg, Pose, cfg, oq, ot, lps, dev), cfg)
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(pytree.tree_leaves(runs[0]), pytree.tree_leaves(runs[1])):
+        assert torch.equal(chip_smoke._bits(torch, a), chip_smoke._bits(torch, b))
+
+
+# ---------------------------------------------------------------------------
 # captured programs (compiled.py) against the same programs eager
 # ---------------------------------------------------------------------------
 
 CAPTURED = ("frontend_body_first", "frontend_body_later", "keyframe_prep", "extract_features",
             "odometry_first", "odometry_later", "mapping", "gate", "optimize_chain_cg",
-            "optimize_woodbury", "frame_batch_b2")
+            "optimize_woodbury", "frame_batch_b2", "verify_loop", "sc_make_and_append",
+            "sc_detect_latest", "add_keyframe", "add_keyframe_new_sequence", "add_loop")
 
 
 def _clone(tree):
@@ -446,6 +514,9 @@ def _card_program(name, inp):
 
     cfg, dev, scans, feats = inp["cfg"], inp["dev"], inp["scans"], inp["feats"]
     s0, s1, full = inp["s0"], inp["s1"], feats.full
+    if name in ("verify_loop", "sc_make_and_append", "sc_detect_latest", "add_keyframe",
+                "add_keyframe_new_sequence", "add_loop"):
+        return _card_backend_program(name, inp)
     if name.startswith("optimize"):
         pcfg = cfg.pgo if name == "optimize_chain_cg" else dataclasses.replace(
             cfg.pgo, wb_min_nodes=64)
@@ -469,6 +540,52 @@ def _card_program(name, inp):
         "frame_batch_b2": lambda: multiseq.frame_batch(
             *multiseq.init_states(2, cfg, dev), xyz, mask, cfg),
     }[name]
+
+
+def _card_backend_program(name, inp):
+    """The keyframe backend's programs on the card, fresh copies of the
+    donated tables each call."""
+    from scaloam_tpu_torch import compiled
+    from scaloam_tpu_torch.models import pipeline, scancontext as scm
+    from scaloam_tpu_torch.ops import icp
+
+    cfg, dev, full = inp["cfg"], inp["dev"], inp["feats"].full
+    if name == "verify_loop":
+        rng = np.random.default_rng(6)
+        tgt = rng.uniform(-12, 12, (4096, 3)).astype(np.float32)
+        tgt[:, 2] *= 0.2
+        c, s = np.cos(0.1), np.sin(0.1)
+        rot = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]], np.float32)
+        src = torch.from_numpy(((tgt[:2048] - [0.8, -0.4, 0.1]) @ rot).astype(np.float32)).to(dev)
+        tgt = torch.from_numpy(tgt).to(dev)
+        ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)
+        inits = Pose(torch.tensor([[1.0, 0, 0, 0], [np.cos(-0.05), 0, 0, np.sin(-0.05)]],
+                                  dtype=torch.float32, device=dev),
+                     torch.zeros((2, 3), device=dev))
+        kw = dict(voxel_size=0.4, sub_capacity=4096, gx=16, gy=16, gz=16, cell_size=2.0,
+                  cell_cap=32, dedup_radius=0.4, reach=2.0, max_corr_dist=150.0,
+                  coarse_iterations=12, fine_iterations=10, transformation_eps=1e-6)
+        args = (src, ones(2048), src[::8].clone(), ones(256), tgt[::4].clone(), ones(1024), tgt,
+                ones(4096), inits)
+        return lambda: icp.verify_loop(*args, **kw)
+    with compiled.disabled():
+        kf_xyz, kf_mask, _ = pipeline._prepare_keyframe(full.xyz, full.mask, full.rel_time, cfg)
+        db = scm.init_db(cfg.scancontext, dev)  # room for every append below
+        for k in range(cfg.scancontext.num_exclude_recent + 3):
+            db, _ = scm.make_and_append(db, kf_xyz + 0.5 * k, kf_mask, cfg.scancontext)
+        graph = _card_chain(64, 4, cfg.pgo, dev)
+    if name == "sc_make_and_append":
+        return lambda: scm.make_and_append(_clone(db), kf_xyz, kf_mask, cfg.scancontext)
+    if name == "sc_detect_latest":
+        return lambda: scm.detect_latest(db, cfg.scancontext)
+    pose = Pose(torch.tensor([0.0, 0.6, 0.0, 0.8], device=dev),
+                torch.tensor([8.0, 0.5, 0.2], device=dev))
+    if name == "add_loop":
+        i, j = torch.tensor(60, device=dev), torch.tensor(3, device=dev)
+        return lambda: pg.add_loop_jit(_clone(graph), i, j, pose)
+    z, ok = torch.tensor(1.5, device=dev), torch.tensor(1.0, device=dev)
+    return lambda: pg.add_keyframe_jit(_clone(graph), pose, z, ok,
+                                       new_sequence=name == "add_keyframe_new_sequence")
 
 
 @pytest.mark.parametrize("name", CAPTURED)

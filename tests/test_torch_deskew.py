@@ -41,6 +41,7 @@ from scaloam_tpu_torch.models import odometry as todo
 from scaloam_tpu_torch.ops import correspond as tcor, features as tfeat, gn as tgn
 from scaloam_tpu_torch.ops import residuals as tres, se3 as tse3
 from scaloam_tpu_torch.types import LidarScan as TScan, Pose as TPose
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 Q_TOL, T_TOL = 5e-4, 5e-3

@@ -37,6 +37,7 @@ from scaloam_tpu_torch.models import frontend as tfront, mapping as tmap, odomet
 from scaloam_tpu_torch.ops import features as tfeat
 from scaloam_tpu_torch.ops.kernels import gn_odometry, selection as tsel
 from scaloam_tpu_torch.types import LidarScan as TScan, Pose as TPose
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 Q_TOL, T_TOL = 5e-4, 5e-3

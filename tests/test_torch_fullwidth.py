@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from scaloam_tpu import config as jconfig
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))

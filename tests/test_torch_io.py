@@ -13,6 +13,7 @@ from scaloam_tpu.io import native_loader as jnl
 from scaloam_tpu.utils import mapmerge as jmerge
 from scaloam_tpu_torch.io import artifacts, native_loader as tnl, pcd as pcd_io
 from scaloam_tpu_torch.utils import mapmerge as tmerge, metrics, viz
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -30,6 +30,7 @@ from scaloam_tpu_torch.ops.kernels import gn_odometry as tgnk
 from scaloam_tpu_torch.ops.kernels import selection as tsel
 from scaloam_tpu_torch.types import LidarScan
 from scaloam_tpu_torch.utils import synthetic
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 SEL_KW = dict(n_sub=6, n_corner=20, n_flat=4, curv_thr=0.1)
 K2_KW = dict(outer_iterations=2, gn_iterations=4, thr=25.0, huber_delta=0.1)

@@ -32,6 +32,7 @@ from scaloam_tpu_torch import config as tconfig, convert
 from scaloam_tpu_torch.models import mapping as tmap
 from scaloam_tpu_torch.ops import gridmap as tgrid, voxel as tvox
 from scaloam_tpu_torch.types import FeatureCloud as TCloud, LidarScan as TScan
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -45,9 +46,6 @@ DROPPED = {
     "split3_f32": "three-way bf16 split for exact MXU matmuls; the port's matmuls are f32",
     "pack_corner": "sublane-shaped input pack of the Pallas GN kernel; K2 takes the tensors",
     "pack_surf": "sublane-shaped input pack of the Pallas GN kernel; K2 takes the tensors",
-    "add_keyframe_jit": "jax.jit wrapper; the port calls posegraph.add_keyframe",
-    "add_loop_jit": "jax.jit wrapper; the port calls posegraph.add_loop",
-    "append_descriptor_jit": "jax.jit wrapper; the port calls scancontext.append_descriptor",
 }
 
 

@@ -14,6 +14,7 @@ from scaloam_tpu.ops import fit as jfit, gn as jgn, residuals as jres, se3 as js
 from scaloam_tpu.types import Pose as JPose
 from scaloam_tpu_torch.ops import fit as tfit, gn as tgn, residuals as tres, se3 as tse3
 from scaloam_tpu_torch.types import Pose as TPose
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 

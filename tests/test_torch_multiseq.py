@@ -34,6 +34,7 @@ from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
 from scaloam_tpu_torch.parallel import multiseq
 from scaloam_tpu_torch.types import LidarScan, Pose
 from scaloam_tpu_torch.utils import synthetic
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 N_SEQ, N_FRAMES = 3, 2
 Q_TOL, T_TOL = 5e-4, 5e-3

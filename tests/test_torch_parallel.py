@@ -51,6 +51,7 @@ from scaloam_tpu_torch.parallel import sc_retrieval as tsc
 from scaloam_tpu_torch.runtime.pipeline import AsyncSlamPipeline
 from scaloam_tpu_torch.types import LidarScan, Pose
 from scaloam_tpu_torch.utils import synthetic
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RANK_TIMEOUT_S = 300  # a world that does not finish in time fails its tests

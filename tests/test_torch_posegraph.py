@@ -24,6 +24,7 @@ from scaloam_tpu.types import Pose as JPose
 from scaloam_tpu_torch import config as tconfig, convert
 from scaloam_tpu_torch.models import posegraph as tpg
 from scaloam_tpu_torch.types import Pose as TPose
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 Q_TOL, T_TOL = 1e-4, 1e-3
 CPU = "cpu"
@@ -102,6 +103,11 @@ def _optimize_both(cfg, jg, tg, cg_iters=64):
 
 CFG = jconfig.PGOConfig(max_keyframes=128, max_loops=16, gn_iterations=10)
 LOOPY = dict(loop_variance=1e-3, gn_iterations=12, cauchy_k=100.0)
+# The loop-chain and GPS scenarios share one configuration (the GPS
+# variance is idle without GPS factors, the loop variance without loops):
+# each configuration costs the reference one trace of `optimize`, ~25 s
+# on the CPU, most of it in blocktri.factor's unrolled 6x6 products.
+CHAIN = dataclasses.replace(CFG, solver="chain_cg", gps_z_variance=0.01, **LOOPY)
 
 
 @pytest.mark.parametrize("scenario", [
@@ -117,7 +123,7 @@ def test_optimize_matches_reference(scenario):
     elif scenario == "gps":
         oq, ot = q, t + np.outer(0.05 * np.arange(n), [0, 0, 1]).astype(np.float32)
         gps = np.zeros(n, np.float32)
-        cfg = dataclasses.replace(CFG, gps_z_variance=0.01, cauchy_k=100.0)
+        cfg, cg_iters = CHAIN, 128
     elif scenario == "robust_outlier":
         oq, ot = _drift(q, t, rng, 0.001, 0.01)
         bad_q = np.asarray(jse3.exp_so3(jnp.asarray([0, 0, 2.0], jnp.float32)))
@@ -126,7 +132,7 @@ def test_optimize_matches_reference(scenario):
         oq, ot = _drift(q, t, rng)
         loops = _loops(q, t, n, 5)
         if scenario == "loop_chain_cg":
-            cfg, cg_iters = dataclasses.replace(CFG, solver="chain_cg", **LOOPY), 128
+            cfg, cg_iters = CHAIN, 128
         else:
             cfg = dataclasses.replace(CFG, solver="woodbury", wb_min_nodes=1, wb_cg_iters=8, **LOOPY)
     jg, tg = _build_both(cfg, oq, ot, loops, gps)
@@ -175,9 +181,10 @@ def test_woodbury_step_matches_dense_oracle():
     N = 16
     free_np = (np.arange(N) > 0) & (np.arange(N) < n)
     tf = [tpg._sanitize(f) for f in tpg._linearize(tg, tcfg)]
-    g, D, D_loop = tpg._gradient_and_diag(tf, N)
+    plans = tpg.loop_plans(tg)
+    g, D, D_loop = tpg._gradient_and_diag(tf, N, plans)
     free = torch.tensor(free_np)
-    got = tpg._solve_woodbury(tf, g, D, D_loop, free, tcfg.lm_damping, iters=12).numpy()
+    got = tpg._solve_woodbury(tf, g, D, D_loop, free, tcfg.lm_damping, 12, plans).numpy()
 
     damp = tpg._damping(D, D_loop, tcfg.lm_damping)
     cols = []
@@ -185,7 +192,7 @@ def test_woodbury_step_matches_dense_oracle():
         e = torch.zeros((N, 6))
         e[idx // 6, idx % 6] = 1.0
         e[~free] = 0.0
-        col = tpg._hess_matvec(tf, e, damp)
+        col = tpg._hess_matvec(tf, e, damp, plans)
         col[~free] = 0.0
         cols.append(col.numpy().reshape(-1))
     H = np.stack(cols, axis=1).astype(np.float64)
@@ -215,3 +222,49 @@ def test_graph_capacity_growth_keeps_contents():
     assert np.isfinite(g.poses.trans.numpy()).all()
     with pytest.raises(ValueError):
         tpg.grow(g, node_capacity_new=32)
+
+
+def test_loop_sums_add_each_nodes_rows_in_ascending_order():
+    """The loop factors' gradient, diagonal blocks and matvec reach their
+    nodes one row after another in ascending order, as the reference's
+    `.at[].add` adds them: bit for bit a row-by-row sum, on a graph whose
+    loops share nodes (on the card these sums were float atomics)."""
+    n, cfg = 24, tconfig.PGOConfig(max_keyframes=32, max_loops=8)
+    q, t = _circle(n)
+    t = t + np.random.default_rng(3).normal(0, 0.05, t.shape).astype(np.float32)
+    g = tpg.init_graph(cfg, CPU, initial_nodes=32, initial_loops=8)
+    for k in range(n):
+        g = tpg.add_keyframe(g, TPose(_t(q[k]), _t(t[k])), 0.0, False, n_nodes=k)
+    pairs = [(23, 0), (22, 0), (23, 1), (20, 0), (23, 5), (21, 1)]  # shared ends
+    for m, (i, j) in enumerate(pairs):
+        g = tpg.add_loop(g, i, j, TPose(*map(_t, _rel(q, t, i, j))), n_loops=m)
+    odom, loops, gps = factors = [tpg._sanitize(f) for f in tpg._linearize(g, cfg)]
+    plans = tpg.loop_plans(g)
+    grad, D, D_loop = tpg._gradient_and_diag(factors, 32, plans)
+    v = torch.from_numpy(np.random.default_rng(4).normal(size=(32, 6)).astype(np.float32))
+    damp = torch.full((32, 6), 1e-3)
+    mv = tpg._hess_matvec(factors, v, damp, plans)
+
+    def row_by_row(base, rows_i, rows_j):
+        out = base.clone()
+        for idx, rows in ((loops.i, rows_i), (loops.j, rows_j)):
+            for r in range(len(idx)):
+                out[idx[r]] = out[idx[r]] + rows[r]
+        return out
+
+    Wr_o, Wr_l = odom.W * odom.r, loops.W * loops.r
+    g0 = (tpg._JtWr(odom.Ji, Wr_o) + tpg._shift_down(tpg._JtWr(odom.Jj, Wr_o))
+          + tpg._JtWr(gps.Ji, gps.W * gps.r))
+    assert torch.equal(grad, row_by_row(g0, tpg._JtWr(loops.Ji, Wr_l),
+                                        tpg._JtWr(loops.Jj, Wr_l)))
+    assert torch.equal(D_loop, row_by_row(torch.zeros_like(D),
+                                          tpg._JtWJ(loops.Ji, loops.W, loops.Ji),
+                                          tpg._JtWJ(loops.Jj, loops.W, loops.Jj)))
+    Avl = (torch.einsum("frc,fc->fr", loops.Ji, v[loops.i])
+           + torch.einsum("frc,fc->fr", loops.Jj, v[loops.j]))
+    no_loops = tpg._hess_matvec([odom, loops._replace(W=torch.zeros_like(loops.W)), gps], v,
+                                damp, plans)
+    want = row_by_row(no_loops, tpg._JtWr(loops.Ji, loops.W * Avl),
+                      tpg._JtWr(loops.Jj, loops.W * Avl))
+    assert torch.equal(mv, want)
+    assert torch.count_nonzero(D_loop[0]) > 0 and torch.count_nonzero(D_loop[23]) > 0

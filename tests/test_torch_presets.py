@@ -42,6 +42,7 @@ from scaloam_tpu_torch.io import mulran as tmulran
 from scaloam_tpu_torch.models import frontend as tfront, pipeline as tpipe
 from scaloam_tpu_torch.ops import features as tfeat
 from scaloam_tpu_torch.types import LidarScan as TScan
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 Q_TOL, T_TOL = 5e-4, 5e-3
 PRESETS = ["vlp16", "hdl32", "mulran_os1_64", "kitti_hdl64"]

@@ -38,6 +38,7 @@ from scaloam_tpu_torch.models import pipeline as tpipe, scancontext as tscm
 from scaloam_tpu_torch.ops.kernels import _build
 from scaloam_tpu_torch.runtime.pipeline import AsyncSlamPipeline
 from scaloam_tpu_torch.runtime.queues import BoundedQueue
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 N_FRAMES = 5
 Q_TOL, T_TOL = 5e-4, 5e-3

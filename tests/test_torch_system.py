@@ -40,6 +40,7 @@ from scaloam_tpu_torch import config as tconfig, convert, run as trun
 from scaloam_tpu_torch.models import pipeline as tpipe, posegraph as tpg
 from scaloam_tpu_torch.ops import se3 as tse3
 from scaloam_tpu_torch.types import Pose as TPose
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 CPU = "cpu"
 

@@ -17,6 +17,7 @@ import torch
 
 from scaloam_tpu.ops import correspond as jcorr, gridmap as jgrid, voxel as jvox
 from scaloam_tpu_torch.ops import correspond as tcorr, gridmap as tgrid, voxel as tvox
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 
 def _np(x):

@@ -1,17 +1,20 @@
 """Real-time drive of the threaded runtime, alone: chip_smoke.py's phase
 (d2) (the fused AsyncSlamPipeline over run.py's 160-frame synthetic loop
 drive, fed at the sensor's 10 Hz) without the other phases, so two
-checkouts can be compared on one card in one call.
+checkouts can be compared on one card in one call; with --sync, phase (b)
+instead (the same drive through SlamSystem, its backend stages timed).
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/torch_runtime_probe.py [--root DIR]
+    python3 tools/torch_runtime_probe.py [--sync] [--root DIR]
 
 --root DIR imports scaloam_tpu_torch and chip_smoke.py from another
 checkout (DIR). The scans are made once into build/probe_scans.npz and
 reused by later runs. Prints the card's name and power limit, then one
-JSON line: scans/s, dropped frames, each worker's busy time and frame
-count, optimise / ICP calls and times under threads, loops and ATE.
+JSON line: for (d2) scans/s, dropped frames, each worker's busy time and
+frame count, optimise / ICP calls and times under threads, loops and ATE;
+for (b) the non-keyframe and keyframe medians, host syncs a frame, each
+backend stage's times, loops and ATE.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ SCANS = os.path.join(HERE, "build", "probe_scans.npz")
 
 
 def main(argv) -> int:
-    root = HERE
+    root, sync = HERE, argv[:1] == ["--sync"]
+    argv = argv[1:] if sync else argv
     if argv[:1] == ["--root"] and len(argv) == 2:
         root = argv[1]
     elif argv:
-        print("usage: torch_runtime_probe.py [--root DIR]", file=sys.stderr)
+        print("usage: torch_runtime_probe.py [--sync] [--root DIR]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -66,7 +70,16 @@ def main(argv) -> int:
     counters = (selection.select_features, gn_odometry.associate_and_solve,
                 gn_odometry.gn_solve_prepared)
     t0 = time.perf_counter()
-    stats, launches = chip_smoke.realtime_phase(torch, dev, cfg, scans, gt, counters)
+    if sync:
+        full = chip_smoke.system_phase(torch, dev, cfg, scans, np.stack(gt), counters)
+        stats = {k: full[k] for k in (
+            "ms_per_frame_non_keyframe_median", "ms_per_frame_non_keyframe_mean",
+            "ms_per_frame_keyframe_median", "ms_per_frame_all_mean",
+            "host_syncs_per_frame_non_keyframe", "host_syncs_per_frame_keyframe", "stages",
+            "keyframes", "loops", "ate_opt_m")}
+        launches = full["launches"]
+    else:
+        stats, launches = chip_smoke.realtime_phase(torch, dev, cfg, scans, gt, counters)
     stats.update(root=root, launches=launches, probe_wall_s=time.perf_counter() - t0)
     print(json.dumps(stats), flush=True)
     return 0
