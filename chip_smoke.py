@@ -26,12 +26,16 @@ counts set to 0 just before it and read just after:
   synthetic source, which must close a loop, with the backend's stages
   timed, their host reads counted and one call of each profiled for its
   kernel launches, the launches of the keyframe backend's kernels
-  (csrc/kabsch.cu, ICP's 3x3 Kabsch rotation, and csrc/segment_sum.cu,
-  the fixed-order loop-factor sums) counted too; then each of those two
-  kernels held against its plain version on every input that one of the
-  drive's loop verifications and one optimise of its final graph pass it
-  (and Kabsch on random, near-planar, reflected, rank-2 and zero
-  matrices), timed beside torch.linalg.svd and index_add_;
+  (csrc/kabsch_step.cu, ICP's whole weighted-Kabsch step, csrc/hess_matvec.cu,
+  the optimise's Hessian-vector product a CG step, and csrc/segment_sum.cu,
+  the gradient's fixed-order loop-factor sums) counted too, and none of
+  csrc/kabsch.cu's rotation alone; then each of those kernels held against
+  its plain version, bit for bit, on every input that one of the drive's
+  loop verifications and one optimise of its final graph pass it, and the
+  rotation on the H's of that verification's steps (and on random,
+  near-planar, reflected, rank-2 and zero matrices); each timed captured
+  beside the captured sequence it replaced, or beside torch.linalg.svd and
+  index_add_;
 - (c) the CLI: `scaloam_tpu_torch.run.main` on a 16-frame synthetic drive
   into build/smoke_session, then resumed from it, and with
   --async-pipeline into build/smoke_async;
@@ -121,8 +125,11 @@ counts set to 0 just before it and read just after:
 Before them, the graph pools at the script's end with the keys held and
 the keys of outgrown tiers dropped. The last three lines of standard
 output are the kernel table (JSON, with the launches of the system drive
-for K1 / K2, Kabsch and the segment sum and of the main path for sq_dist
-/ atan2, and per kernel the (g1) rows and the (g2) launches, then a row
+for K1 / K2 and the backend's four (the Kabsch rotation alone, 0 since the
+step took it in; the segment sum; the matvec and the Kabsch step, with
+their launches in (a), (d2) and (g2) and the captured time of the
+sequence each replaced) and of the main path for sq_dist / atan2, and per
+kernel the (g1) rows and the (g2) launches, then a row
 for each batched K1 / K2 entry at (h)'s 8 problems, with (h)'s
 launches), the card's name and power limit, and the device line (JSON).
 Any mismatch or error raises, so the exit code is non-zero. Without a
@@ -150,12 +157,23 @@ WARM_FRAMES = 2  # excluded from the ms/frame window
 PREP_FRAME = 3  # frame whose mapping factors feed entry B's check (dense map)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 ROUNDING_KERNELS = ("sq_dist", "sum3_sq", "atan2")  # csrc/f32ops.cu
-BACKEND_KERNELS = ("kabsch", "segment_sum")  # csrc/kabsch.cu, csrc/segment_sum.cu
+# csrc/kabsch.cu, csrc/segment_sum.cu, csrc/hess_matvec.cu, csrc/kabsch_step.cu; all but
+# the rotation alone run on (b)'s path
+BACKEND_KERNELS = ("kabsch", "segment_sum", "hess_matvec", "kabsch_step")
+PATH_BACKEND_KERNELS = ("segment_sum", "hess_matvec", "kabsch_step")
 KABSCH_TOL = 1e-6  # the kernel and its plain version perform the same IEEE operations
 # float operations of one Kabsch matrix: per Jacobi rotation three dot
 # products (15), the angle (13), two 3-vector pairs rotated (36); the
 # scaling (18) and the rotation's assembly (~90)
 KABSCH_OPS = 6 * 3 * 64 + 108
+# float operations of the fused matvec (csrc/hess_matvec.cu): a node's W A v
+# of its odometry factor (6 x 24), its GPS W J v (6 x 12) and its six sums
+# (6 x 37); a loop row at one of its ends, its W A v (6 x 24) and J^T of it
+# (6 x 12)
+HMV_OPS_NODE, HMV_OPS_LOOP_END = 6 * (24 + 12 + 37), 6 * (24 + 12)
+# of the Kabsch step (csrc/kabsch_step.cu): a point's pass 1 (13) and pass
+# 2 (27), then a row's rotation, translation and quaternion
+STEP_OPS_POINT, STEP_OPS_ROW = 40, KABSCH_OPS + 60
 ATAN2_OPS = 34  # float32 operations of glibc's atan2f an element (csrc/f32ops.cu)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 K2_QUAT_TOL = 2e-4  # f32 summation order differs from the plain version
@@ -712,9 +730,10 @@ def launch_profile(torch, fn):
 
 def _backend_counters():
     """The keyframe backend's kernel wrappers, by BACKEND_KERNELS name."""
-    from scaloam_tpu_torch.ops.kernels import kabsch, segment_sum
+    from scaloam_tpu_torch.ops.kernels import hess_matvec, kabsch, segment_sum
 
-    return {"kabsch": kabsch.kabsch_rotation, "segment_sum": segment_sum.add}
+    return {"kabsch": kabsch.kabsch_rotation, "segment_sum": segment_sum.add,
+            "hess_matvec": hess_matvec.hess_matvec, "kabsch_step": kabsch.kabsch_step}
 
 
 def _launch_counts():
@@ -843,6 +862,9 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
         torch.cuda.synchronize()
         capture_ms = (time.perf_counter() - t0) * 1e3
         ticks = []  # replays from here on
+        backend = _backend_counters()
+        for c in backend.values():
+            c.launches = 0
         for tick in range(PGO_TICKS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -858,6 +880,7 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
                     raise AssertionError(f"pose graph {n}: card vs CPU {diff:.2e} m")
                 log(f"pose graph {n}: card vs CPU after one optimise: max |dt| {diff:.2e} m "
                     f"(tol {PGO_CPU_TOL_M})")
+        kernel_launches = {name: c.launches // PGO_TICKS for name, c in backend.items()}
         trans = g.poses.trans.cpu().numpy()
         if not (np.isfinite(trans).all() and np.isfinite(g.poses.quat.cpu().numpy()).all()):
             raise AssertionError(f"pose graph {n}: non-finite poses")
@@ -872,13 +895,14 @@ def pose_graph_phase(torch, dev, tiers=PGO_TIERS):
                "ms_per_optimise": ticks, "ms_first_call": capture_ms,
                "launches_per_optimise": launches,
                "host_launches_per_optimise": host_launches,
-               "host_syncs_per_optimise": syncs, "ate_drift_m": drift, "ate_opt_m": opt,
+               "host_syncs_per_optimise": syncs, "kernel_launches_per_optimise": kernel_launches,
+               "ate_drift_m": drift, "ate_opt_m": opt,
                "first_trans": first_trans, "chain_sha256": chain_sha256(oq, ot, loops)}
         log(f"pose graph {n} nodes / {nl} loops ({'Woodbury' if row['woodbury'] else 'chain-CG'}): "
             f"ms per optimise {[round(x, 2) for x in ticks]} (replays; the key's first call, eager "
             f"then captured, {capture_ms:.1f} ms), {launches} "
             f"device operations and {host_launches} host launches a call, {syncs} host syncs, "
-            f"ATE {drift:.4f} -> {opt:.4f} m")
+            f"backend kernel launches a call {kernel_launches}, ATE {drift:.4f} -> {opt:.4f} m")
         rows.append(row)
     return rows
 
@@ -1774,43 +1798,125 @@ def kabsch_cases(torch, dev, n=300):
     return {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in cases.items()}
 
 
+def former_matvec(torch, odom, gps, loops, plans, v, damp, free):
+    """The sequence csrc/hess_matvec.cu replaced: the optimise's matvec as
+    the port composed it before that kernel (einsums, shifts, two
+    csrc/segment_sum.cu sums) inside the CG's two masks."""
+    from scaloam_tpu_torch.models import posegraph as pg
+    from scaloam_tpu_torch.ops.kernels import segment_sum
+
+    fm = free[:, None]
+    v = torch.where(fm, v, 0.0)
+    v_next = torch.cat([v[1:], torch.zeros_like(v[:1])])
+    Av = torch.einsum("frc,fc->fr", odom.Ji, v) + torch.einsum("frc,fc->fr", odom.Jj, v_next)
+    WAv = odom.W * Av
+    out = damp * v + pg._JtWr(odom.Ji, WAv) + pg._shift_down(pg._JtWr(odom.Jj, WAv))
+    out = out + pg._JtWr(gps.Ji, gps.W * torch.einsum("frc,fc->fr", gps.Ji, v))
+    WAvl = loops.W * (torch.einsum("frc,fc->fr", loops.Ji, v[loops.i])
+                      + torch.einsum("frc,fc->fr", loops.Jj, v[loops.j]))
+    out = segment_sum.add(out, pg._JtWr(loops.Ji, WAvl), plans[0])
+    out = segment_sum.add(out, pg._JtWr(loops.Jj, WAvl), plans[1])
+    return torch.where(fm, out, 0.0)
+
+
+def former_kabsch(torch, source, w, tgt, mask_q):
+    """The sequence csrc/kabsch_step.cu replaced: ICP's step as the port
+    composed it before that kernel, around csrc/kabsch.cu's rotation."""
+    from scaloam_tpu_torch.ops import se3
+    from scaloam_tpu_torch.ops.kernels import kabsch
+
+    wsum = torch.clamp(torch.sum(w, dim=1), min=1.0)[:, None]
+    mu_s = torch.sum(source[None] * w[..., None], dim=1) / wsum
+    mu_t = torch.sum(tgt * w[..., None], dim=1) / wsum
+    P = (source[None] - mu_s[:, None]) * w[..., None]
+    Q = tgt - mu_t[:, None]
+    if mask_q:
+        Q = torch.where(w[..., None] > 0, Q, 0.0)
+    R = kabsch.kabsch_rotation(torch.matmul(P.mT, Q))
+    return se3.mat_to_quat(R), mu_t - torch.matmul(R, mu_s[..., None])[..., 0]
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def backend_kernel_checks(torch, dev, system, icp_call):
-    """csrc/kabsch.cu and csrc/segment_sum.cu against their plain versions
-    on the card, on every input that one eager loop verification of (b)
-    (`icp_call`, a recorded call of icp.verify_loop) and one eager
-    optimise of (b)'s final graph pass them (spied), and Kabsch on
-    kabsch_cases; each timed at the largest input of the verification or
-    the optimise, beside its plain version, its bound and the PyTorch call
-    that computes the same function: torch.linalg.svd (which reads the
-    device from the host; its host syncs counted) and index_add_ (float
-    atomics). Also whether index_add_ and index_put_(accumulate=True) sum
+    """The keyframe backend's kernels against their plain versions on the
+    card, on every input that one eager loop verification of (b)
+    (`icp_call`, a recorded call of icp.verify_loop) and one eager optimise
+    of (b)'s final graph pass them (spied): csrc/kabsch_step.cu (ICP's
+    step) and csrc/hess_matvec.cu (the CG's matvec) bit for bit, each timed
+    captured beside the captured sequence it replaced (former_kabsch,
+    former_matvec) at the same inputs; csrc/kabsch.cu's rotation on the H's
+    the plain step computes from the recorded inputs and on kabsch_cases,
+    timed beside torch.linalg.svd (which reads the device from the host; its
+    host syncs counted); csrc/segment_sum.cu on its remaining calls (the
+    gradient's and diagonal's loop rows), timed beside index_add_ (float
+    atomics), with whether index_add_ and index_put_(accumulate=True) sum
     in the kernel's order and are bit-equal run to run. Returns {name:
     row}."""
+    import torch.utils._pytree as pytree
+
     from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.models import posegraph as pg
     from scaloam_tpu_torch.ops import icp
-    from scaloam_tpu_torch.ops.kernels import kabsch, segment_sum
+    from scaloam_tpu_torch.ops.kernels import hess_matvec, kabsch, segment_sum
 
-    kernels = {"kabsch": kabsch.kabsch_rotation, "segment_sum": segment_sum.add}
-    seen = {name: [] for name in kernels}
+    names = {"segment_sum": (segment_sum, "add"), "hess_matvec": (hess_matvec, "hess_matvec"),
+             "kabsch_step": (kabsch, "kabsch_step"), "kabsch": (kabsch, "kabsch_rotation")}
+    kernels = {name: getattr(mod, attr) for name, (mod, attr) in names.items()}
+    seen = {name: [] for name in names}
+    clone = lambda t: t.clone() if torch.is_tensor(t) else t
 
     def spy(name):
-        def call(*args):
-            seen[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
-            return kernels[name](*args)
+        def call(*args, **kw):  # keywords are the wrappers' last parameters
+            seen[name].append(pytree.tree_map(clone, args + tuple(kw.values())))
+            return kernels[name](*args, **kw)
         return call
 
-    kabsch.kabsch_rotation, segment_sum.add = spy("kabsch"), spy("segment_sum")
+    for name, (mod, attr) in names.items():
+        setattr(mod, attr, spy(name))
     try:
         with compiled.disabled():  # a captured step's replay runs no spy
             icp.verify_loop(*icp_call[0], **icp_call[1])
             pg.optimize(system.graph, system.cfg.pgo)
     finally:
-        kabsch.kabsch_rotation, segment_sum.add = kernels["kabsch"], kernels["segment_sum"]
+        for name, (mod, attr) in names.items():
+            setattr(mod, attr, kernels[name])
+    if seen["kabsch"] or not (seen["kabsch_step"] and seen["hess_matvec"]):
+        raise AssertionError(f"backend calls {[(k, len(v)) for k, v in seen.items()]}: want "
+                             f"the step and the matvec, never the rotation alone")
     rows = {}
-    # Kabsch: every H of the verification, one at a time and as one batch,
-    # and the edge cases
-    Hs = [h for (h,) in seen["kabsch"]]
+    # the Kabsch step: every call of the verification, bit for bit
+    for src, w, tgt, mask_q in seen["kabsch_step"]:
+        got = kabsch.kabsch_step(src, w, tgt, mask_q)
+        want_q, want_t = kabsch.kabsch_step_plain(src[None], w, tgt, mask_q)
+        if not (_bits_equal(torch, got.quat, want_q) and _bits_equal(torch, got.trans, want_t)):
+            raise AssertionError(f"kabsch_step {tuple(w.shape)}: differs from the plain version")
+    shapes = {}
+    for call in seen["kabsch_step"]:  # the last call of each shape, coarse and fine
+        shapes[tuple(call[1].shape)] = call
+    step_rows = {}
+    for shape, (src, w, tgt, mask_q) in shapes.items():
+        B, S = shape
+        r = dict(shape=[B, S], mask_q=mask_q,
+                 ms=graph_ms(torch, lambda: kabsch.kabsch_step(src, w, tgt, mask_q), 100),
+                 eager_ms=cuda_ms(torch, lambda: kabsch.kabsch_step(src, w, tgt, mask_q), 200),
+                 plain_ms=cuda_ms(torch, lambda: kabsch.kabsch_step_plain(src[None], w, tgt,
+                                                                          mask_q), 20),
+                 replaced_graph_ms=graph_ms(torch, lambda: former_kabsch(torch, src, w, tgt,
+                                                                         mask_q), 100),
+                 library_ms=None)
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            S * 12 + B * S * 16 + B * 28, B * (S * STEP_OPS_POINT + STEP_OPS_ROW))
+        step_rows[f"{B}x{S}"] = r
+    fine = max(step_rows.values(), key=lambda r: r["shape"][1])
+    rows["kabsch_step"] = dict(fine, max_abs_err=0.0, calls=len(seen["kabsch_step"]),
+                               shapes=step_rows)
+    # the rotation: the H's of those steps (plain), one at a time and as one
+    # batch, and the edge cases
+    Hs = [kabsch.kabsch_step_parts(src[None], w, tgt, mask_q)[2]
+          for src, w, tgt, mask_q in seen["kabsch_step"]]
     cases = {"verification": torch.cat(Hs), **kabsch_cases(torch, dev)}
     err = 0.0
     for label, H in cases.items():
@@ -1823,9 +1929,8 @@ def backend_kernel_checks(torch, dev, system, icp_call):
         err = max(err, e)
         log(f"kabsch {label} {tuple(H.shape)}: |kernel - plain| {e:.3e} (tol {KABSCH_TOL}), "
             f"|R R^T - I| {orth:.2e}")
-    if not all(float((kabsch.kabsch_rotation(h) - kabsch.kabsch_plain(h)).abs().max())
-               <= KABSCH_TOL for h in Hs):
-        raise AssertionError("kabsch: a verification call differs from plain")
+    if not all(_bits_equal(torch, kabsch.kabsch_rotation(h), kabsch.kabsch_plain(h)) for h in Hs):
+        raise AssertionError("kabsch: the rotation of a verification step's H differs from plain")
     H = max(Hs, key=lambda h: h.shape[0])
     with SyncCounter(torch) as sc:
         torch.linalg.svd(H)
@@ -1838,11 +1943,37 @@ def backend_kernel_checks(torch, dev, system, icp_call):
                           library_host_syncs=svd_syncs)
     rows["kabsch"]["bound_ms"], rows["kabsch"]["bound_by"] = bound_ms(
         H.shape[0] * 72, H.shape[0] * KABSCH_OPS)
-    # segment sums: every call of the optimise, bit for bit
+    # the matvec: every call of the optimise, bit for bit
+    for args in seen["hess_matvec"]:
+        got = hess_matvec.hess_matvec(*args)
+        if not _bits_equal(torch, got, hess_matvec.hess_matvec_plain(*hess_matvec.operands(*args))):
+            raise AssertionError(f"hess_matvec {tuple(args[4].shape)}: differs from the plain "
+                                 f"version")
+    args = seen["hess_matvec"][0]
+    ops = hess_matvec.operands(*args)
+    N = args[4].shape[0]
+    ends = sum(int(p.starts[-1]) for p in args[3])  # the loop rows in the plans
+    # the loop slots the plans reach (padding slots are in neither plan)
+    slots = int(torch.unique(torch.cat([p.order[:int(p.starts[-1])] for p in args[3]])).numel())
+    rows["hess_matvec"] = dict(
+        max_abs_err=0.0, shape=[N, int(args[2].Ji.shape[0])], calls=len(seen["hess_matvec"]),
+        loop_ends=ends, loop_slots=slots,
+        ms=graph_ms(torch, lambda: hess_matvec.hess_matvec(*args), 100),
+        eager_ms=cuda_ms(torch, lambda: hess_matvec.hess_matvec(*args), 200),
+        plain_ms=cuda_ms(torch, lambda: hess_matvec.hess_matvec_plain(*ops), 20),
+        replaced_graph_ms=graph_ms(torch, lambda: former_matvec(torch, *args), 100),
+        library_ms=None)
+    # bytes: the node arrays (v, damp, free, the odometry and GPS factors)
+    # and both plans' starts whole, a reached slot's Ji, Jj, W, i and j
+    # once, an order entry a planned row, the output
+    node_bytes = sum(t.numel() * t.element_size() for t in ops[:8] + (ops[14], ops[16]))
+    rows["hess_matvec"]["bound_ms"], rows["hess_matvec"]["bound_by"] = bound_ms(
+        node_bytes + slots * (2 * 144 + 24 + 2 * 8) + ends * 8 + N * 24,
+        N * HMV_OPS_NODE + ends * HMV_OPS_LOOP_END)
+    # segment sums: every remaining call of the optimise, bit for bit
     for base, rws, plan in seen["segment_sum"]:
         got = segment_sum.add(base, rws, plan)
-        if not torch.equal(got.view(torch.int32),
-                           segment_sum.add_plain(base, rws, *plan).view(torch.int32)):
+        if not _bits_equal(torch, got, segment_sum.add_plain(base, rws, *plan)):
             raise AssertionError(f"segment_sum {tuple(base.shape)} {tuple(rws.shape)}: differs "
                                  f"from the plain version")
     # the largest call with the most nodes that several rows reach
@@ -1873,11 +2004,15 @@ def backend_kernel_checks(torch, dev, system, icp_call):
     rows["segment_sum"]["bound_ms"], rows["segment_sum"]["bound_by"] = bound_ms(
         2 * n * c * 4 + R * c * 4 + R * 8 + (n + 1) * 8, R * c)
     for name, r in rows.items():
+        lib, rep = r["library_ms"], r.get("replaced_graph_ms")
         log(f"{name} {r['shape']} ({r['calls']} calls in one eager run): kernel {r['ms']:.4f} ms "
             f"(eager call {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), library {r['library_ms']:.4f} ms; "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}"
+            f"{'' if rep is None else f', the sequence it replaced captured {rep:.4f} ms'}; "
             + json.dumps({k: v for k, v in r.items() if k not in (
-                "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}))
+                "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                "replaced_graph_ms")}))
     return rows
 
 
@@ -2214,7 +2349,8 @@ def mulran_cli_phase(torch, root, made, counters):
     system_cls = pipeline.SlamSystem
     pipeline.SlamSystem, posegraph.optimize, icp.verify_loop = (
         Recorded, timed_optimize, spy_verify_loop)
-    for counter in counters:
+    backend = _backend_counters()
+    for counter in (*counters, *backend.values()):
         counter.launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -2227,6 +2363,7 @@ def mulran_cli_phase(torch, root, made, counters):
             system_cls, optimize, verify_loop)
     wall = time.perf_counter() - t0
     launches = dict(zip(("K1", "K2 A", "K2 B"), (c.launches for c in counters)))
+    backend_launches = {name: c.launches for name, c in backend.items()}
     if rc != 0:
         raise AssertionError(f"(g2) run.main --preset mulran_os1_64: exit code {rc}")
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
@@ -2259,7 +2396,7 @@ def mulran_cli_phase(torch, root, made, counters):
     return {
         "record": record,
         "result": res, "wall_s": wall, "gps_factors": n_gps, "ate_m": ate,
-        "launches": launches, "loops": s.loops_found,
+        "launches": launches, "backend_launches": backend_launches, "loops": s.loops_found,
         "ms_per_frame_keyframe_median": float(np.median(ms[kf])) if kf.any() else None,
         "ms_per_frame_non_keyframe_median": float(np.median(ms[~kf])) if (~kf).any() else None,
         "keyframe_frames": int(kf.sum()), "non_keyframe_frames": int((~kf).sum()),
@@ -3083,9 +3220,11 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     launches = dict(zip(("K1", "K2 A", "K2 B") + BACKEND_KERNELS, sys_stats["launches"]))
     want = {"K1": SYS_FRAMES, "K2 A": SYS_FRAMES - 1,
             "K2 B": config.kitti_hdl64().mapping.outer_iterations * SYS_FRAMES}
-    if {k: launches[k] for k in want} != want or min(launches[k] for k in BACKEND_KERNELS) < 1:
-        raise AssertionError(f"system drive launches {launches}, want {want} and each of "
-                             f"{BACKEND_KERNELS} at least once")
+    if ({k: launches[k] for k in want} != want or launches["kabsch"] != 0
+            or min(launches[k] for k in PATH_BACKEND_KERNELS) < 1):
+        raise AssertionError(f"system drive launches {launches}, want {want}, each of "
+                             f"{PATH_BACKEND_KERNELS} at least once and kabsch (the rotation "
+                             f"alone) never")
     log(f"system drive: {sys_stats['frames']} frames, {sys_stats['keyframes']} keyframes, "
         f"loops {sys_stats['loops']}, launches {launches}, ATE optimised "
         f"{sys_stats['ate_opt_m']:.4f} m vs odometry {sys_stats['ate_odom_m']:.4f} m")
@@ -3137,8 +3276,10 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
 
     # ---- (d2) the fused runtime at the sensor's rate over the whole drive
     t_phase = time.perf_counter()
-    rt, got = realtime_phase(torch, dev, sys_cfg, scans, sys_gt, counters)
-    log(f"(d2) real time: {json.dumps(rt)}, launches {dict(zip(('K1', 'K2 A', 'K2 B'), got))}")
+    rt, got = realtime_phase(torch, dev, sys_cfg, scans, sys_gt,
+                             counters + tuple(_backend_counters().values()))
+    d2_launches = dict(zip(("K1", "K2 A", "K2 B") + BACKEND_KERNELS, got))
+    log(f"(d2) real time: {json.dumps(rt)}, launches {d2_launches}")
     log(f"(d2) {rt['scans_per_sec']:.2f} scans/s, {rt['dropped_frames']} dropped, front end "
         f"{rt['frontend_ms_per_frame']:.2f} ms/frame busy, optimise {rt['optimise_calls']} calls "
         f"(first {rt['optimise_ms_first']:.1f} ms, median {rt['optimise_ms_median']:.1f} ms), "
@@ -3288,14 +3429,22 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
     for key, source, replaces in (
             ("kabsch", "scaloam_tpu_torch/csrc/kabsch.cu", "scaloam_tpu/ops/icp.py:122"),
             ("segment_sum", "scaloam_tpu_torch/csrc/segment_sum.cu",
-             "scaloam_tpu/models/posegraph.py:439")):
+             "scaloam_tpu/models/posegraph.py:439"),
+            ("hess_matvec", "scaloam_tpu_torch/csrc/hess_matvec.cu",
+             "scaloam_tpu/models/posegraph.py:447"),
+            ("kabsch_step", "scaloam_tpu_torch/csrc/kabsch_step.cu",
+             "scaloam_tpu/ops/icp.py:113")):
         row = bk_rows[key]
         kernels.append({
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "eager_ms": row["eager_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "matched": True, "shape": row["shape"]})
+            "library_ms": row["library_ms"], "matched": True, "shape": row["shape"],
+            "replaced_graph_ms": row.get("replaced_graph_ms"),
+            "launches_a": {r["nodes"]: r["kernel_launches_per_optimise"][key] for r in pgo_rows},
+            "launches_d2": d2_launches[key], "launches_g2": g2["backend_launches"][key],
+            **({"shapes": row["shapes"]} if "shapes" in row else {})})
     for key, m in meta.items():
         row = h_rows[key]
         kernels.append({

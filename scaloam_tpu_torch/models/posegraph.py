@@ -5,11 +5,12 @@ Factors: odometry BetweenFactors along the chain (variances rot 1e-6 /
 trans 1e-4), ScanContext loop BetweenFactors with Cauchy(k) robust
 weights, and altitude-only GPS factors. Node 0 is frozen (the reference's
 1e-12-variance prior). Each GN step solves H d = -g by conjugate gradients
-without forming H: the matvec runs factor-wise, the chain's odometry
-factors by shifts and the loops by fixed-order segment sums
-(ops/kernels/segment_sum.py: each node adds its loop rows in ascending
-order, as the reference's `.at[].add` does, so an optimise on the card
-gives one answer for one input). The preconditioner is the
+without forming H: the matvec is one fused kernel a CG step
+(ops/kernels/hess_matvec.py), and the gradient's and diagonal's loop
+rows go through fixed-order segment sums (ops/kernels/segment_sum.py):
+each node adds its loop rows in ascending order, as the reference's
+`.at[].add` does, so an optimise on the card gives one answer for one
+input. The preconditioner is the
 exact block-tridiagonal chain (ops/blocktri.py) or, on the Woodbury tier,
 the Woodbury inverse of chain + low-rank loop terms. The solver choice is
 static, from the padded capacities and the PGOConfig thresholds.
@@ -30,7 +31,7 @@ import torch
 from scaloam_tpu_torch import compiled, device as _device
 from scaloam_tpu_torch.config import PGOConfig
 from scaloam_tpu_torch.ops import blocktri, se3
-from scaloam_tpu_torch.ops.kernels import segment_sum
+from scaloam_tpu_torch.ops.kernels import hess_matvec, segment_sum
 from scaloam_tpu_torch.types import Pose
 
 
@@ -342,11 +343,6 @@ def _shift_down(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
 
 
-def _shift_up(x: torch.Tensor) -> torch.Tensor:
-    """out[k] = x[k+1]."""
-    return torch.cat([x[1:], torch.zeros_like(x[:1])], dim=0)
-
-
 def _JtWr(J, Wr):
     return torch.einsum("frc,fr->fc", J, Wr)
 
@@ -385,19 +381,15 @@ def _gradient_and_diag(factors, N: int, plans):
     return g, D, D_loop
 
 
-def _hess_matvec(factors, v: torch.Tensor, damping_diag: torch.Tensor, plans) -> torch.Tensor:
-    """H v without forming H (the loop rows summed as in _gradient_and_diag)."""
+def _hess_matvec(factors, v: torch.Tensor, damping_diag: torch.Tensor, plans,
+                 free_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """H v without forming H, one launch on the card (ops/kernels/hess_matvec.py:
+    the loop rows summed as in _gradient_and_diag); with `free_mask`, the
+    CG's where(free, H where(free, v, 0), 0)."""
     odom, loops, gps = factors
-    out = damping_diag * v
-    Av = torch.einsum("frc,fc->fr", odom.Ji, v) + torch.einsum("frc,fc->fr", odom.Jj, _shift_up(v))
-    WAv = odom.W * Av
-    out = out + _JtWr(odom.Ji, WAv) + _shift_down(_JtWr(odom.Jj, WAv))
-    out = out + _JtWr(gps.Ji, gps.W * torch.einsum("frc,fc->fr", gps.Ji, v))
-    Avl = (torch.einsum("frc,fc->fr", loops.Ji, v[loops.i])
-           + torch.einsum("frc,fc->fr", loops.Jj, v[loops.j]))
-    WAvl = loops.W * Avl
-    out = segment_sum.add(out, _JtWr(loops.Ji, WAvl), plans[0])
-    return segment_sum.add(out, _JtWr(loops.Jj, WAvl), plans[1])
+    if free_mask is None:
+        free_mask = torch.ones(v.shape[0], dtype=torch.bool, device=v.device)
+    return hess_matvec.hess_matvec(odom, gps, loops, plans, v, damping_diag, free_mask)
 
 
 def _chain_factor(odom, D_blocks, damp, free_mask):
@@ -419,13 +411,16 @@ def _chain_factor_blocks(B_chain, D_blocks, damp, free_mask):
     return blocktri.factor(D_chain, B_chain)
 
 
-def _run_pcg(hess_mv, g, free_mask, precond, iters: int):
-    """Preconditioned CG for H d = -g on the free nodes; hess_mv(v) = H v."""
+def _masked(hess_mv, free_mask):
+    """v -> where(free, hess_mv(where(free, v, 0)), 0)."""
     fm = free_mask[:, None]
+    return lambda v: torch.where(fm, hess_mv(torch.where(fm, v, 0.0)), 0.0)
 
-    def mv(v):
-        return torch.where(fm, hess_mv(torch.where(fm, v, 0.0)), 0.0)
 
+def _run_pcg(mv, g, free_mask, precond, iters: int):
+    """Preconditioned CG for H d = -g on the free nodes; mv(v) = H v on the
+    free nodes, 0 elsewhere (see _masked)."""
+    fm = free_mask[:, None]
     b = torch.where(fm, -g, 0.0)
     x = torch.zeros_like(b)
     r = b
@@ -458,8 +453,8 @@ def _solve_cg(factors, g, D, D_loop, free_mask, damping: float, iters: int, plan
     def precond(v):
         return torch.where(fm, blocktri.solve(chain, torch.where(fm, v, 0.0)), 0.0)
 
-    return _run_pcg(lambda v: _hess_matvec(factors, v, damp, plans), g, free_mask, precond,
-                    iters)
+    return _run_pcg(lambda v: _hess_matvec(factors, v, damp, plans, free_mask), g, free_mask,
+                    precond, iters)
 
 
 def _woodbury_setup(factors, D, D_loop, free_mask, damping: float):
@@ -525,8 +520,8 @@ def _solve_woodbury(factors, g, D, D_loop, free_mask, damping: float, iters: int
     damp = _damping(D, D_loop, damping)
     if wb is None:
         wb = _woodbury_setup(factors, D, D_loop, free_mask, damping)
-    return _run_pcg(lambda v: _hess_matvec(factors, v, damp, plans), g, free_mask,
-                   _wb_precond(wb, factors[1], free_mask), iters)
+    return _run_pcg(lambda v: _hess_matvec(factors, v, damp, plans, free_mask), g, free_mask,
+                    _wb_precond(wb, factors[1], free_mask), iters)
 
 
 def uses_woodbury(N: int, L: int, cfg: PGOConfig) -> bool:

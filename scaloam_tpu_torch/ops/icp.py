@@ -5,10 +5,11 @@ Alignment runs in the loop keyframe's local frame: the source is the
 current keyframe in its own frame and the target a submap expressed
 relative to the loop keyframe, so the result C satisfies C ~= T_loop^-1
 T_curr and the loop factor is Z = C^-1. Each iteration solves a weighted
-Kabsch problem: the rotation of the 3x3 SVD with the determinant sign fix
-comes from ops/kernels/kabsch.py (a CUDA kernel on the card, its plain
-version on the CPU), and the trimming quantile is written out, so nothing
-is read back. The iteration count is fixed; once the pose update falls
+Kabsch problem, the whole step (centroids, H, the rotation of its 3x3
+SVD with the determinant sign fix, t and the quaternion) one CUDA kernel
+on the card (ops/kernels/kabsch.py `kabsch_step`, its plain version on
+the CPU), and the trimming quantile is written out, so nothing is read
+back. The iteration count is fixed; once the pose update falls
 below the transformation epsilon the pose freezes, through a flag that
 stays on the device, which gives the result of an early exit without
 reading the device in the loop. The three functions are compiled steps
@@ -68,21 +69,6 @@ def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     return v[:, lo:lo + 1] * (1.0 - w) + v[:, hi:hi + 1] * w
 
 
-def _kabsch(source, w, tgt_pts, mask_q: bool) -> Pose:
-    """Weighted Kabsch per batch row: source [S, 3], w [B, S], tgt_pts
-    [B, S, 3] -> the pose [B] moving source onto the targets."""
-    wsum = torch.clamp(torch.sum(w, dim=1), min=1.0)[:, None]
-    mu_s = torch.sum(source[None] * w[..., None], dim=1) / wsum
-    mu_t = torch.sum(tgt_pts * w[..., None], dim=1) / wsum
-    P = (source[None] - mu_s[:, None]) * w[..., None]
-    Q = tgt_pts - mu_t[:, None]
-    if mask_q:
-        Q = torch.where(w[..., None] > 0, Q, 0.0)
-    R = kabsch.kabsch_rotation(torch.matmul(P.mT, Q))  # H = P^T Q [B, 3, 3]
-    t = mu_t - torch.matmul(R, mu_s[..., None])[..., 0]
-    return Pose(se3.mat_to_quat(R), t)
-
-
 def _batched(init: Pose):
     """(init with a leading batch dim, whether one was added)."""
     if init.quat.ndim == 1:
@@ -121,7 +107,7 @@ def icp_point2point(source, source_mask, target, target_mask, init: Pose,
         ok = source_mask[None] & (d2 < max_d2)
         if trim_fraction < 1.0:
             ok = ok & (d2 <= _quantile(torch.where(ok, d2, _TRIM_BIG), trim_fraction))
-        return _kabsch(source, ok.to(torch.float32), target[idx], mask_q=False)
+        return kabsch.kabsch_step(source, ok.to(torch.float32), target[idx], mask_q=False)
 
     pose = _run_iters(one_iter, init, iterations, transformation_eps)
     d2, _ = nn(pose)
@@ -152,7 +138,7 @@ def icp_point2point_grid(source, source_mask, grid: gm.GridMap, gx: int, gy: int
     def one_iter(pose):
         d2, tgt_pts = nn(pose)
         ok = source_mask[None] & (d2 < reach2)
-        return _kabsch(source, ok.to(torch.float32), tgt_pts, mask_q=True)
+        return kabsch.kabsch_step(source, ok.to(torch.float32), tgt_pts, mask_q=True)
 
     if init.quat.shape[0] != 1:
         raise ValueError("icp_point2point_grid takes one initial pose")

@@ -2,10 +2,11 @@
 
 Each source in scaloam_tpu_torch/csrc is compiled by nvcc for sm_90a into
 its own shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds) and loaded with ctypes. All sources build in parallel,
-one nvcc each, into `build/kernels/` beside the package; a library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused. `build` and `library` are safe to
+build takes seconds) and loaded with ctypes; the headers beside them
+(`*.cuh`) are shared device code. All sources build in parallel, one nvcc
+each, into `build/kernels/` beside the package; a library's file name
+carries a hash of its source, the headers and the flags, so an edited
+source is rebuilt and an unchanged one is reused. `build` and `library` are safe to
 call from several threads of one process: one lock serialises them, and
 each build writes a temporary file named by process and thread.
 """
@@ -25,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("selection", "gn_odometry", "f32ops", "kabsch", "segment_sum")
+SOURCES = ("selection", "gn_odometry", "f32ops", "kabsch", "segment_sum", "hess_matvec",
+           "kabsch_step")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +50,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # the shared headers
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -32,8 +32,8 @@ def sq_norm(v: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def quat_normalize(q: torch.Tensor) -> torch.Tensor:
-    return q / torch.clamp(torch.sqrt(sq_norm(q)), min=_EPS)[..., None]
+def quat_normalize(q: torch.Tensor, sqrt=torch.sqrt) -> torch.Tensor:
+    return q / torch.clamp(sqrt(sq_norm(q)), min=_EPS)[..., None]
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -96,10 +96,12 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([cw, k * w], dim=-1)
 
 
-def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+def mat_to_quat(m: torch.Tensor, sqrt=torch.sqrt) -> torch.Tensor:
     """Rotation matrix [..., 3, 3] -> unit quaternion [..., 4] wxyz by
     Shepperd's method without branches: all four candidate forms, the one
-    with the largest pivot kept; the sign is canonical (w >= 0)."""
+    with the largest pivot kept; the sign is canonical (w >= 0). `sqrt`
+    takes the norm's square root (ops/f32.py `sqrt` rounds correctly on
+    the CPU too)."""
     m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
@@ -115,7 +117,7 @@ def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
     case = torch.argmax(pivots, dim=-1)  # first of equal pivots
     cands = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., case, comp]
     idx = case[..., None, None].expand(case.shape + (1, 4))
-    q = quat_normalize(torch.gather(cands, -2, idx)[..., 0, :])
+    q = quat_normalize(torch.gather(cands, -2, idx)[..., 0, :], sqrt)
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 

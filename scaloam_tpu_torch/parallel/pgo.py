@@ -104,8 +104,8 @@ def optimize_sharded(graph: pg.PoseGraph, cfg: PGOConfig, mesh,
         def precond(v):
             return torch.where(fm, blocktri.solve(chain, torch.where(fm, v, 0.0)), 0.0)
 
-        delta = pg._run_pcg(lambda v: _matvec(factors, v, damp, group, plans), g, free,
-                            precond, cg_iters)
+        delta = pg._run_pcg(pg._masked(lambda v: _matvec(factors, v, damp, group, plans), free),
+                            g, free, precond, cg_iters)
         new = se3.compose(graph.poses, se3.exp_se3(delta))
         graph = graph._replace(poses=Pose(torch.where(fm, new.quat, graph.poses.quat),
                                           torch.where(fm, new.trans, graph.poses.trans)))

@@ -18,9 +18,17 @@ card launches each kernel once a batched frame. The rounding kernels
 for bit, on the card and on the CPU, and vmapped in one launch. The
 Kabsch kernel (csrc/kabsch.cu) within 1e-6 of its plain version on the
 same batches (the same IEEE operations in the same order), the segment
-sum (csrc/segment_sum.cu) bit for bit. Two eager optimises of one graph
-at 4096 nodes / 64 loops and at 8192 / 256 are bit-equal (the loop
-factors sum in one fixed order). Each program the port captures as a
+sum (csrc/segment_sum.cu) bit for bit. The fused kernels equal their
+plain versions bit for bit, on the card and on the CPU: the optimise's
+Hessian-vector product (csrc/hess_matvec.cu) at 256 to 8192 nodes, and
+ICP's Kabsch step (csrc/kabsch_step.cu) at 2 x 2048 and 1 x 8192 points
+(the plain step's square roots are ops/f32.py `sqrt`, correctly rounded
+as on the card; the CPU's torch.sqrt misrounds some inputs by an ulp),
+vmapped in one launch. The step is also held to a float64 Kabsch at both
+stages' shapes (tests/kabsch_reference.py: the quaternion within 1e-5,
+the translation within 1e-4 m). Two eager optimises of one graph at each tier
+(256 / 64, 1024 / 16, 4096 / 64, 8192 / 256 nodes / loops) are bit-equal
+(the loop factors sum in one fixed order). Each program the port captures as a
 CUDA graph (scaloam_tpu_torch/compiled.py) replays what it computes
 eagerly under compiled.disabled(): bit for bit where two eager calls
 agree bit for bit.
@@ -440,15 +448,18 @@ def test_segment_sum_kernel_matches_plain(dev):
         assert torch.equal(got, plain) and torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("nodes,loops", [(4096, 64), (8192, 256)])
-def test_eager_optimise_is_reproducible(dev, nodes, loops):
-    """Two eager optimises of one graph give the same poses bit for bit:
-    the loop factors reach their nodes in one fixed order (no atomics)."""
+@pytest.mark.parametrize("nodes,loops,lap", [(256, 64, 64), (1024, 16, 512), (4096, 64, 512),
+                                             (8192, 256, 512)])
+def test_eager_optimise_is_reproducible(dev, nodes, loops, lap):
+    """Two eager optimises of one graph give the same poses bit for bit at
+    every tier: the loop factors reach their nodes in one fixed order (no
+    atomics). The 256-node chain laps a 64-node circle, so it has loops."""
     import chip_smoke
     from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.types import Pose
 
-    _, oq, ot, lps = chip_smoke.circle_chain(nodes, loops, seed=nodes)
+    _, oq, ot, lps = chip_smoke.circle_chain(nodes, loops, seed=nodes, lap=lap)
+    assert len(lps) == loops
     cfg = chip_smoke.chain_pgo_cfg(config.PGOConfig(), nodes, loops)
     with compiled.disabled():
         runs = [pg.optimize(chip_smoke.build_graph(torch, pg, Pose, cfg, oq, ot, lps, dev), cfg)
@@ -456,6 +467,154 @@ def test_eager_optimise_is_reproducible(dev, nodes, loops):
     torch.cuda.synchronize()
     for a, b in zip(pytree.tree_leaves(runs[0]), pytree.tree_leaves(runs[1])):
         assert torch.equal(chip_smoke._bits(torch, a), chip_smoke._bits(torch, b))
+
+
+# ---------------------------------------------------------------------------
+# the fused kernels: the optimise's Hessian-vector product, ICP's Kabsch step
+# ---------------------------------------------------------------------------
+
+
+def _mv_inputs(dev, N, n, L, n_loops, seed):
+    """The matvec's inputs at capacity N (n nodes, the rest padding) with
+    n_loops loops of capacity L whose ends share nodes, node 0 and every
+    seventh node frozen."""
+    from scaloam_tpu_torch import config as tconfig
+
+    rng = np.random.default_rng(seed)
+    cfg = tconfig.PGOConfig(max_keyframes=N, max_loops=L, loop_variance=1e-3)
+    g = pg.init_graph(cfg, dev, initial_nodes=N, initial_loops=L)
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    for k in range(n):
+        t = torch.tensor([float(k), 0.05 * k * rng.standard_normal(), 0.0], device=dev)
+        g = pg.add_keyframe(g, Pose(ident, t), float(k % 3), k % 5 == 0, n_nodes=k)
+    for m in range(n_loops):
+        i, j = n - 1 - m % 4, (7 * m) % max(1, n // 2)
+        z = Pose(ident, torch.tensor([float(j - i), 0.3, 0.0], device=dev))
+        g = pg.add_loop(g, i, j, z, n_loops=m)
+    factors = [pg._sanitize(f) for f in pg._linearize(g, cfg)]
+    plans = pg.loop_plans(g)
+    _, D, D_loop = pg._gradient_and_diag(factors, N, plans)
+    damp = pg._damping(D, D_loop, cfg.lm_damping)
+    ks = torch.arange(N, device=dev)
+    free = (ks > 0) & (ks < n) & (ks % 7 != 0)
+    v = torch.from_numpy(rng.normal(size=(N, 6)).astype(np.float32)).to(dev)
+    return factors, plans, v, damp, free
+
+
+def _int_bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("N,n,L,n_loops", [
+    (256, 219, 64, 40), (1024, 1024, 16, 16), (4096, 4001, 64, 64), (8192, 8192, 256, 256),
+    (256, 200, 64, 0), (100, 37, 8, 8)])
+def test_hess_matvec_kernel_matches_plain(dev, N, n, L, n_loops):
+    """Bit for bit at the optimise's tiers, with padding and frozen nodes,
+    loops sharing nodes, no loops, and node counts that end mid-block."""
+    from scaloam_tpu_torch.ops.kernels import hess_matvec
+
+    factors, plans, v, damp, free = _mv_inputs(dev, N, n, L, n_loops, seed=N + n_loops)
+    odom, loops, gps = factors
+    got = {}
+    for mask in (free, torch.ones_like(free)):
+        before = hess_matvec.hess_matvec.launches
+        got[mask.all().item()] = out = hess_matvec.hess_matvec(odom, gps, loops, plans, v, damp,
+                                                              mask)
+        assert hess_matvec.hess_matvec.launches == before + 1
+        want = hess_matvec.hess_matvec_plain(
+            *hess_matvec.operands(odom, gps, loops, plans, v, damp, mask))
+        torch.cuda.synchronize()
+        assert torch.equal(_int_bits(out), _int_bits(want))
+        assert torch.isfinite(out).all() and torch.all(out[~mask] == 0)
+    # the product on the CPU (the plain version there: multiplies, adds and
+    # selects only) gives the same bits
+    cpu = [t.cpu() for t in (v, damp, free)]
+    cpu_factors = [f._replace(**{k: x.cpu() for k, x in f._asdict().items()}) for f in factors]
+    cpu_plans = tuple(type(p)(*(x.cpu() for x in p)) for p in plans)
+    on_cpu = pg._hess_matvec(cpu_factors, cpu[0], cpu[1], cpu_plans, cpu[2])
+    assert torch.equal(_int_bits(on_cpu), _int_bits(got[False].cpu()))
+
+
+def _step_inputs(dev, B, S, seed, keep=0.7):
+    rng = np.random.default_rng(seed)
+    src = (rng.normal(size=(S, 3)) * 10).astype(np.float32)
+    tgt = np.stack([src + rng.normal(size=3) + rng.normal(size=(S, 3)) * 0.05 for _ in range(B)])
+    w = (rng.uniform(size=(B, S)) < keep).astype(np.float32)
+    return (torch.from_numpy(src).to(dev), torch.from_numpy(w).to(dev),
+            torch.from_numpy(tgt.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("B,S,mask_q,keep", [
+    (2, 2048, False, 0.7), (1, 8192, True, 0.7), (2, 1000, True, 0.5), (1, 100, False, 0.9),
+    (2, 2048, True, 0.0), (1, 8192, False, 0.01)])
+def test_kabsch_step_kernel_matches_plain(dev, B, S, mask_q, keep):
+    """Bit for bit at both ICP stages' shapes (2 x 2048 coarse, 1 x 8192
+    fine), a point count no multiple of the threads, one block a row, all
+    weights zero and nearly all zero; the rotation equals kabsch_rotation
+    on the plain step's H."""
+    from scaloam_tpu_torch.ops.kernels import kabsch
+
+    src, w, tgt = _step_inputs(dev, B, S, seed=S + B, keep=keep)
+    before = kabsch.kabsch_step.launches
+    got = kabsch.kabsch_step(src, w, tgt, mask_q)
+    assert kabsch.kabsch_step.launches == before + 1
+    want_q, want_t = kabsch.kabsch_step_plain(src[None], w, tgt, mask_q)
+    torch.cuda.synchronize()
+    assert torch.equal(_int_bits(got.quat), _int_bits(want_q))
+    assert torch.equal(_int_bits(got.trans), _int_bits(want_t))
+    _, _, H = kabsch.kabsch_step_parts(src[None], w, tgt, mask_q)
+    assert torch.equal(_int_bits(kabsch.kabsch_rotation(H)), _int_bits(kabsch.kabsch_plain(H)))
+    # the plain step on the CPU (correctly rounded square roots) gives the same bits
+    cpu_q, cpu_t = kabsch.kabsch_step_plain(src[None].cpu(), w.cpu(), tgt.cpu(), mask_q)
+    assert torch.equal(_int_bits(got.quat.cpu()), _int_bits(cpu_q))
+    assert torch.equal(_int_bits(got.trans.cpu()), _int_bits(cpu_t))
+    if keep == 0.0:
+        assert torch.equal(got.quat, torch.tensor([[1.0, 0, 0, 0]] * B, device=dev))
+
+
+@pytest.mark.parametrize("B,S,mask_q", [(2, 2048, False), (1, 8192, True), (2, 2048, True)])
+def test_kabsch_step_kernel_matches_float64(dev, B, S, mask_q):
+    """At both ICP stages' shapes (2 x 2048 coarse, 1 x 8192 fine) the
+    kernel's pose is the float64 Kabsch's within the tolerances of the CPU
+    tests (tests/kabsch_reference.py), on clouds of ~10 m turned by up to
+    0.1 rad, a fifth of the weights zero."""
+    from kabsch_reference import F64_Q_TOL, F64_T_TOL, f64_kabsch, quat_err
+    from scaloam_tpu_torch.ops.kernels import kabsch
+
+    rng = np.random.default_rng(S + B + mask_q)
+    src = (rng.normal(size=(S, 3)) * 10).astype(np.float32)
+    tgt = []
+    for b in range(B):
+        axis = rng.normal(size=3)
+        axis *= 0.05 * (b + 1) / np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+        th = np.linalg.norm(axis)
+        R = np.eye(3) + np.sin(th) / th * K + (1 - np.cos(th)) / th ** 2 * K @ K
+        tgt.append(src @ R.T + rng.normal(size=3) + rng.normal(size=(S, 3)) * 0.01)
+    tgt = np.stack(tgt).astype(np.float32)
+    w = (rng.uniform(size=(B, S)) < 0.8).astype(np.float32)
+    got = kabsch.kabsch_step(torch.from_numpy(src).to(dev), torch.from_numpy(w).to(dev),
+                             torch.from_numpy(tgt).to(dev), mask_q)
+    quat, trans = got.quat.cpu().numpy(), got.trans.cpu().numpy()
+    for b in range(B):
+        R, t = f64_kabsch(src, w[b], tgt[b], mask_q)
+        want_q = se3.mat_to_quat(torch.from_numpy(R)).numpy()
+        assert quat_err(quat[b], want_q) <= F64_Q_TOL
+        assert np.abs(trans[b] - t).max() <= F64_T_TOL
+
+
+def test_kabsch_step_folds_a_vmapped_batch_into_one_launch(dev):
+    from scaloam_tpu_torch.ops.kernels import kabsch
+
+    V = 3
+    parts = [_step_inputs(dev, 2, 2048, seed=40 + i) for i in range(V)]
+    src, w, tgt = (torch.stack(x) for x in zip(*parts))
+    before = kabsch.kabsch_step.launches
+    out = torch.func.vmap(lambda s, ww, t: kabsch.kabsch_step(s, ww, t, False))(src, w, tgt)
+    assert kabsch.kabsch_step.launches == before + 1
+    for i in range(V):
+        one = kabsch.kabsch_step(src[i], w[i], tgt[i], False)
+        assert torch.equal(out.quat[i], one.quat) and torch.equal(out.trans[i], one.trans)
 
 
 # ---------------------------------------------------------------------------
