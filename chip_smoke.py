@@ -8,10 +8,12 @@ It builds the hand-written CUDA kernels from scaloam_tpu_torch/csrc with
 nvcc, holds each kernel entry against its plain PyTorch version on the
 card at the shapes of a full-width kitti_hdl64 frame (K1 selection; K2's
 odometry entry A and its prepared-factor entry B, which mapping calls;
-the 2-NN squared distances and atan2 of csrc/f32ops.cu, rounded as the
-reference's compiled CPU program rounds them, bit-equal to their plain
-versions), then drives the port's paths, each with the kernels' launch
-counts set to 0 just before it and read just after:
+the 2-NN squared distances, squared norms and atan2 of csrc/f32ops.cu,
+rounded as the reference's compiled CPU program rounds them, and
+csrc/ring_azimuth.cu, a frame's ring ids and raw azimuths in one launch,
+each bit-equal to its plain version; atan2 is off the path since
+ring_azimuth took its calls), then drives the port's paths, each with the
+kernels' launch counts set to 0 just before it and read just after:
 
 - the front end (features -> odometry -> mapping -> keyframe gate)
   through `FrontEnd(kitti_hdl64(), device="cuda")` over 12 frames of a
@@ -27,15 +29,17 @@ counts set to 0 just before it and read just after:
   timed, their host reads counted and one call of each profiled for its
   kernel launches, the launches of the keyframe backend's kernels
   (csrc/kabsch_step.cu, ICP's whole weighted-Kabsch step, csrc/hess_matvec.cu,
-  the optimise's Hessian-vector product a CG step, and csrc/segment_sum.cu,
-  the gradient's fixed-order loop-factor sums) counted too, and none of
-  csrc/kabsch.cu's rotation alone; then each of those kernels held against
-  its plain version, bit for bit, on every input that one of the drive's
-  loop verifications and one optimise of its final graph pass it, and the
-  rotation on the H's of that verification's steps (and on random,
-  near-planar, reflected, rank-2 and zero matrices); each timed captured
-  beside the captured sequence it replaced, or beside torch.linalg.svd and
-  index_add_;
+  the optimise's Hessian-vector product a CG step, csrc/chain_solve.cu,
+  its preconditioner's block-tridiagonal solve a call, and
+  csrc/segment_sum.cu, the gradient's fixed-order loop-factor sums)
+  counted too, and none of csrc/kabsch.cu's rotation alone; then each of
+  those kernels held against its plain version, bit for bit, on every
+  input that one of the drive's loop verifications and one optimise of its
+  final graph pass it (the chain solve also on the wide solve of (a)'s
+  Woodbury setups), and the rotation on the H's of that verification's
+  steps (and on random, near-planar, reflected, rank-2 and zero matrices);
+  each timed captured beside the captured sequence it replaced, or beside
+  torch.linalg.svd and index_add_;
 - (c) the CLI: `scaloam_tpu_torch.run.main` on a 16-frame synthetic drive
   into build/smoke_session, then resumed from it, and with
   --async-pipeline into build/smoke_async;
@@ -125,11 +129,12 @@ counts set to 0 just before it and read just after:
 Before them, the graph pools at the script's end with the keys held and
 the keys of outgrown tiers dropped. The last three lines of standard
 output are the kernel table (JSON, with the launches of the system drive
-for K1 / K2 and the backend's four (the Kabsch rotation alone, 0 since the
-step took it in; the segment sum; the matvec and the Kabsch step, with
-their launches in (a), (d2) and (g2) and the captured time of the
-sequence each replaced) and of the main path for sq_dist / atan2, and per
-kernel the (g1) rows and the (g2) launches, then a row
+for K1 / K2 and the backend's five (the Kabsch rotation alone, 0 since the
+step took it in; the segment sum; the matvec, the Kabsch step and the
+chain solve, with their launches in (a), (d2) and (g2) and the captured
+time of the sequence each replaced) and of the main path for sq_dist /
+sum3_sq / atan2 (0) / ring_azimuth, and per kernel the (g1) rows and the
+(g2) launches, then a row
 for each batched K1 / K2 entry at (h)'s 8 problems, with (h)'s
 launches), the card's name and power limit, and the device line (JSON).
 Any mismatch or error raises, so the exit code is non-zero. Without a
@@ -157,10 +162,18 @@ WARM_FRAMES = 2  # excluded from the ms/frame window
 PREP_FRAME = 3  # frame whose mapping factors feed entry B's check (dense map)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 ROUNDING_KERNELS = ("sq_dist", "sum3_sq", "atan2")  # csrc/f32ops.cu
-# csrc/kabsch.cu, csrc/segment_sum.cu, csrc/hess_matvec.cu, csrc/kabsch_step.cu; all but
-# the rotation alone run on (b)'s path
-BACKEND_KERNELS = ("kabsch", "segment_sum", "hess_matvec", "kabsch_step")
-PATH_BACKEND_KERNELS = ("segment_sum", "hess_matvec", "kabsch_step")
+# the front end's own kernels that every frame launches (K1 and K2 apart):
+# the 2-NN distances and squared norms of csrc/f32ops.cu, and
+# csrc/ring_azimuth.cu once a frame; csrc/f32ops.cu's atan2 is off the path
+PATH_ROUNDING_KERNELS = ("sq_dist", "sum3_sq")
+FRONT_KERNELS = ROUNDING_KERNELS + ("ring_azimuth",)
+# operations of ring_azimuth a point: two atan2f, the fused multiply-add,
+# root and the ring formula (~15)
+RING_AZIMUTH_OPS = 2 * 34 + 15
+# csrc/kabsch.cu, csrc/segment_sum.cu, csrc/hess_matvec.cu, csrc/kabsch_step.cu,
+# csrc/chain_solve.cu; all but the rotation alone run on (b)'s path
+BACKEND_KERNELS = ("kabsch", "segment_sum", "hess_matvec", "kabsch_step", "chain_solve")
+PATH_BACKEND_KERNELS = ("segment_sum", "hess_matvec", "kabsch_step", "chain_solve")
 KABSCH_TOL = 1e-6  # the kernel and its plain version perform the same IEEE operations
 # float operations of one Kabsch matrix: per Jacobi rotation three dot
 # products (15), the angle (13), two 3-vector pairs rotated (36); the
@@ -175,6 +188,10 @@ HMV_OPS_NODE, HMV_OPS_LOOP_END = 6 * (24 + 12 + 37), 6 * (24 + 12)
 # 2 (27), then a row's rotation, translation and quaternion
 STEP_OPS_POINT, STEP_OPS_ROW = 40, KABSCH_OPS + 60
 ATAN2_OPS = 34  # float32 operations of glibc's atan2f an element (csrc/f32ops.cu)
+# of the chain solve (csrc/chain_solve.cu) a block row of a level and a
+# column, down and up: six 6x6 products (6 x 11) and four 6-vector
+# subtractions; the root's product
+CHAIN_OPS_ROW, CHAIN_OPS_ROOT = 6 * 66 + 4 * 6, 66
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 K2_QUAT_TOL = 2e-4  # f32 summation order differs from the plain version
 K2_TRANS_TOL = 2e-3
@@ -730,37 +747,47 @@ def launch_profile(torch, fn):
 
 def _backend_counters():
     """The keyframe backend's kernel wrappers, by BACKEND_KERNELS name."""
-    from scaloam_tpu_torch.ops.kernels import hess_matvec, kabsch, segment_sum
+    from scaloam_tpu_torch.ops.kernels import chain_solve, hess_matvec, kabsch, segment_sum
 
     return {"kabsch": kabsch.kabsch_rotation, "segment_sum": segment_sum.add,
-            "hess_matvec": hess_matvec.hess_matvec, "kabsch_step": kabsch.kabsch_step}
+            "hess_matvec": hess_matvec.hess_matvec, "kabsch_step": kabsch.kabsch_step,
+            "chain_solve": chain_solve.chain_solve}
+
+
+def _front_counters():
+    """The front end's kernel wrappers besides K1 and K2, by FRONT_KERNELS
+    name."""
+    from scaloam_tpu_torch.ops.kernels import f32ops, ring_azimuth
+
+    return {**{name: getattr(f32ops, name) for name in ROUNDING_KERNELS},
+            "ring_azimuth": ring_azimuth.ring_azimuth}
 
 
 def _launch_counts():
     """The kernels' launch counters, by kernel."""
-    from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry, selection
+    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
 
     return {"K1": selection.select_features.launches,
             "K2 A": gn_odometry.associate_and_solve.launches,
             "K2 B": gn_odometry.gn_solve_prepared.launches,
-            **{name: getattr(f32ops, name).launches for name in ROUNDING_KERNELS},
+            **{name: fn.launches for name, fn in _front_counters().items()},
             **{name: fn.launches for name, fn in _backend_counters().items()}}
 
 
 def _zero_launches():
     """Set every kernel's launch counter to 0."""
-    from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry, selection
+    from scaloam_tpu_torch.ops.kernels import gn_odometry, selection
 
     for fn in (selection.select_features, gn_odometry.associate_and_solve,
-               gn_odometry.gn_solve_prepared,
-               *(getattr(f32ops, name) for name in ROUNDING_KERNELS),
+               gn_odometry.gn_solve_prepared, *_front_counters().values(),
                *_backend_counters().values()):
         fn.launches = 0
 
 
-def _check_launches(label, got, want, at_least=ROUNDING_KERNELS):
-    """K1 / K2 launched exactly as `want` says; the rounding kernels named
-    in `at_least` (their counts follow the clouds' tiling) at least once."""
+def _check_launches(label, got, want, at_least=PATH_ROUNDING_KERNELS):
+    """K1 / K2, ring_azimuth and atan2 launched exactly as `want` says; the
+    rounding kernels named in `at_least` (their counts follow the clouds'
+    tiling) at least once."""
     k = {key: got[key] for key in want}
     if k != want or min(got[key] for key in at_least) < 1:
         raise AssertionError(f"{label}launches {got}, want {want} and every one of "
@@ -1688,46 +1715,115 @@ def sq_dist_cost(Q, T):
     return (Q + T) * 12 + Q * T * 4, Q * T * 8 + (Q + T) * 5
 
 
+# Each sensor's ring bounds (degrees of elevation) as the reference's
+# _ring_id draws them, and its ring count.
+RING_BOUNDS = {
+    "VLP16": (16, [2.0 * k - 16.0 for k in range(17)]),
+    "HDL32": (32, [4.0 * k / 3.0 - 92.0 / 3.0 for k in range(33)]),
+    "HDL64": (64, [2.0 - (k + 0.5) / 3.0 for k in range(33)]
+              + [-8.83 - (k + 0.5) / 2.0 for k in range(32)] + [2.0, -8.83, -24.33]),
+    "OS1-64": (64, [2.0 * k - 23.5 for k in range(25)]),
+}
+
+
+def ring_bound_points(lidar_type, seed=0, per_bound=64):
+    """float32 points [n, 3] whose elevation lies on one of the sensor's
+    ring bounds, z moved by up to 3 float32 ulps: the ring id and its
+    validity hang on the angle's last ulp there."""
+    rng = np.random.default_rng(seed)
+    el = np.radians(np.repeat(np.asarray(RING_BOUNDS[lidar_type][1]), per_bound))
+    r = rng.uniform(5.0, 80.0, el.size)
+    az = rng.uniform(-np.pi, np.pi, el.size)
+    xyz = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np.sin(el)],
+                   -1).astype(np.float32)
+    xyz[:, 2] += rng.integers(-3, 4, el.size) * np.spacing(np.abs(xyz[:, 2]))
+    return xyz
+
+
+def former_ring_azimuth(torch, xyz, lidar_type, n_scans):
+    """The sequence csrc/ring_azimuth.cu replaced: the port's ring id of a
+    scan (~15 elementwise launches around csrc/f32ops.cu's atan2) and its
+    raw azimuth twice (the sweep's scalars, then the sorted points'
+    relative time: the same atan2 on the same points in another order)."""
+    from scaloam_tpu_torch.ops import f32
+    from scaloam_tpu_torch.ops.kernels import f32ops
+
+    deg = 180.0 / np.pi
+    x, y, z = xyz.unbind(-1)
+    hyp = torch.sqrt(f32.fma_f32(x, x, y * y).double()).float()
+    rad = f32ops.atan2(z, hyp)
+    angle = rad * deg
+    trunc = lambda v: torch.trunc(v).to(torch.int32)
+    if lidar_type == "VLP16":
+        sid = trunc(f32.fma_f32(rad, deg, 15.0) / 2.0 + 0.5)
+        ok = (sid >= 0) & (sid <= n_scans - 1)
+    elif lidar_type == "HDL32":
+        sid = trunc(f32.fma_f32(rad, deg, 92.0 / 3.0) * 3.0 / 4.0)
+        ok = (sid >= 0) & (sid <= n_scans - 1)
+    elif lidar_type == "HDL64":
+        upper = trunc((2.0 - angle) * 3.0 + 0.5)
+        lower = n_scans // 2 + trunc((-8.83 - angle) * 2.0 + 0.5)
+        sid = torch.where(angle >= -8.83, upper, lower)
+        ok = (angle <= 2.0) & (angle >= -24.33) & (sid >= 0) & (sid <= 50)
+    else:  # OS1-64
+        sid = trunc(f32.fma_f32(rad, deg, 22.5) / 2.0 + 0.5)
+        ok = (sid >= 0) & (sid <= n_scans - 1)
+    ori_raw = -f32ops.atan2(y, x)
+    ori_sorted = -f32ops.atan2(y, x)  # the third call's cost: the same points sorted
+    return torch.clamp(sid, 0, n_scans - 1), ok, ori_raw, ori_sorted
+
+
 def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
     """The kernels of csrc/f32ops.cu against their plain versions
-    (ops/f32.py) on the card, bit for bit, on the largest input of each
-    that one FrontEnd step of frame 1 (after frame 0) passes, captured as
-    the step passes it: sq_dist's largest distance block, sum3_sq's
-    largest batch of vectors, atan2's azimuths. Also sq_dist on a
-    tie-heavy block of integer points, sum3_sq on integer vectors and
-    atan2 on the quadrants, axes and signed zeros, and each under
-    torch.func.vmap over those 2 problems: one launch, equal to a launch
-    a problem. Returns {name: {max_abs_err, ms, eager_ms, plain_ms,
-    bound_ms, bound_by, library_ms, shape}}."""
+    (ops/f32.py) and csrc/ring_azimuth.cu against its plain version
+    (ops/kernels/ring_azimuth.py) on the card, bit for bit, on the largest
+    input of each that one FrontEnd step of frame 1 (after frame 0) passes,
+    captured as the step passes it: sq_dist's largest distance block,
+    sum3_sq's largest batch of vectors, ring_azimuth's points; atan2 (off
+    the path) on those points' azimuths. Also sq_dist on a tie-heavy block
+    of integer points, sum3_sq on integer vectors, atan2 on the quadrants,
+    axes and signed zeros and ring_azimuth on the frame with its first rows
+    on the sensor's ring bounds, and each under torch.func.vmap over those
+    2 problems: one launch, equal to a launch a problem. ring_azimuth is
+    timed captured beside the sequence it replaced (former_ring_azimuth)
+    and the gather of its azimuths into the range image's order. Returns
+    {name: {max_abs_err, ms, eager_ms, plain_ms, bound_ms, bound_by,
+    library_ms, shape}}."""
     from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.models.frontend import FrontEnd
     from scaloam_tpu_torch.ops import f32
-    from scaloam_tpu_torch.ops.kernels import f32ops
+    from scaloam_tpu_torch.ops.kernels import f32ops, ring_azimuth
 
     fe = FrontEnd(cfg, device=dev)
     with compiled.disabled():  # a captured step's replay runs no spy
         fe.step(dev_scans[0].xyz, dev_scans[0].mask)
-    kernels = {name: getattr(f32ops, name) for name in ROUNDING_KERNELS}
-    captured = {name: [] for name in ROUNDING_KERNELS}
+    kernels = _front_counters()
+    spied = {name: (ring_azimuth if name == "ring_azimuth" else f32ops) for name in kernels}
+    captured = {name: [] for name in kernels}
 
     def spy(name):
         def call(*args):
-            captured[name].append(tuple(a.clone() for a in args))
+            captured[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
             return kernels[name](*args)
         return call
 
-    for name in ROUNDING_KERNELS:
-        setattr(f32ops, name, spy(name))
+    for name, mod in spied.items():
+        setattr(mod, name, spy(name))
     try:
         with compiled.disabled():
             fe.step(dev_scans[1].xyz, dev_scans[1].mask)
     finally:
-        for name, fn in kernels.items():
-            setattr(f32ops, name, fn)
-    # the most outputs: sq_dist's Q x T, the others' element count
+        for name, mod in spied.items():
+            setattr(mod, name, kernels[name])
+    if captured["atan2"] or len(captured["ring_azimuth"]) != 1:
+        raise AssertionError(f"{tag}front-end step: {len(captured['atan2'])} atan2 calls, "
+                             f"{len(captured['ring_azimuth'])} ring_azimuth calls; want 0 and 1")
+    # the most outputs: sq_dist's Q x T, sum3_sq's element count
     size = lambda args: args[0].shape[0] * args[1].shape[0] if args[0].dim() == 2 and len(
         args) == 2 else args[0].numel()
-    (q, t), (v,), (y, x) = (max(captured[name], key=size) for name in ROUNDING_KERNELS)
+    (q, t), (v,) = (max(captured[name], key=size) for name in ("sq_dist", "sum3_sq"))
+    pts, lidar, n_scans = captured["ring_azimuth"][0]
+    y, x = pts[:, 1].contiguous(), pts[:, 0].contiguous()
     Q, T = q.shape[0], t.shape[0]
     rng = np.random.default_rng(1)
     ints = lambda *shape: torch.tensor(rng.integers(-6, 7, shape), dtype=torch.float32, device=dev)
@@ -1735,23 +1831,30 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
                            device=dev).reshape(2, *y.shape)
     flat = special.view(2, -1)
     flat[0, :64], flat[1, 64:128], flat[0, 128:192] = 0.0, 0.0, -0.0
+    bounds = torch.tensor(ring_bound_points(lidar), device=dev)[:pts.shape[0]]
+    on_bounds = torch.cat([bounds, pts[bounds.shape[0]:]])
     cases = {"sq_dist": [("frame", (q, t)), ("ties", (ints(Q, 3), ints(T, 3)))],
              "sum3_sq": [("frame", (v,)), ("integers", (ints(*v.shape),))],
-             "atan2": [("frame", (y, x)), ("quadrants", (special[0], special[1]))]}
-    plain = {"sq_dist": f32.sq_dist, "sum3_sq": f32.sum3_sq, "atan2": f32.atan2}
+             "atan2": [("frame", (y, x)), ("quadrants", (special[0], special[1]))],
+             "ring_azimuth": [("frame", (pts,)), ("ring bounds", (on_bounds,))]}
+    statics = {"ring_azimuth": (lidar, n_scans)}
+    plain = {"sq_dist": f32.sq_dist, "sum3_sq": f32.sum3_sq, "atan2": f32.atan2,
+             "ring_azimuth": ring_azimuth.ring_azimuth_plain}
     library = {"sq_dist": None, "sum3_sq": lambda a: torch.linalg.vecdot(a, a),
-               "atan2": torch.atan2}
-    n = v.numel() // 3
+               "atan2": torch.atan2, "ring_azimuth": None}
+    n, P = v.numel() // 3, pts.shape[0]
     cost = {"sq_dist": sq_dist_cost(Q, T), "sum3_sq": (n * 16, n * 5),
-            "atan2": (y.numel() * 12, y.numel() * ATAN2_OPS)}
+            "atan2": (y.numel() * 12, y.numel() * ATAN2_OPS),
+            "ring_azimuth": (P * 21, P * RING_AZIMUTH_OPS)}
     rows = {}
-    for name in ROUNDING_KERNELS:
-        kernel = kernels[name]
+    for name in FRONT_KERNELS:
+        kernel, extra = kernels[name], statics.get(name, ())
         for label, args in cases[name]:
-            got, want = kernel(*args), plain[name](*args)
-            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-                raise AssertionError(f"{tag}{name} {label} {tuple(args[0].shape)}: differs from "
-                                     f"the plain version at {int((got != want).sum())} entries")
+            got, want = kernel(*args, *extra), plain[name](*args, *extra)
+            for g, w in zip(*((got, want) if name == "ring_azimuth" else ((got,), (want,)))):
+                if not _equal_bits(torch, g, w):
+                    raise AssertionError(f"{tag}{name} {label} {tuple(args[0].shape)}: differs "
+                                         f"from the plain version at {int((g != w).sum())} entries")
             msg = f"{tag}{name} {label} {tuple(args[0].shape)}: kernel == plain bit for bit"
             if library[name] is not None:
                 msg += (f" (the library call rounds otherwise at "
@@ -1760,17 +1863,19 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
         # both cases as one vmapped batch of 2
         batch = [torch.stack(pair) for pair in zip(cases[name][0][1], cases[name][1][1])]
         before = kernel.launches
-        got = torch.func.vmap(kernel)(*batch)
+        got = torch.func.vmap(lambda *a: kernel(*a, *extra))(*batch)
         launched = kernel.launches - before
-        if launched != 1 or not all(torch.equal(got[i], kernel(*(a[i] for a in batch)))
-                                    for i in range(2)):
+        one = lambda i: kernel(*(a[i] for a in batch), *extra)
+        same = lambda g, w: all(torch.equal(a, b) for a, b in zip(
+            *((g, w) if name == "ring_azimuth" else ((g,), (w,)))))
+        if launched != 1 or not all(same(pytree_index(got, i), one(i)) for i in range(2)):
             raise AssertionError(f"{tag}{name} vmapped over 2: {launched} launches, want 1 "
                                  f"equal to a launch a problem")
         args = cases[name][0][1]
-        call = lambda: kernel(*args)
+        call = lambda: kernel(*args, *extra)
         rows[name] = dict(
             max_abs_err=0.0, ms=graph_ms(torch, call, 100), eager_ms=cuda_ms(torch, call, 200),
-            plain_ms=cuda_ms(torch, lambda: plain[name](*args), 5),
+            plain_ms=cuda_ms(torch, lambda: plain[name](*args, *extra), 5),
             library_ms=(None if library[name] is None
                         else cuda_ms(torch, lambda: library[name](*args), 200)),
             shape=[list(a.shape) for a in args])
@@ -1779,7 +1884,23 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
         log(f"{tag}{name} times {r['shape']}: kernel {r['ms']:.4f} ms (eager call "
             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}), library {r['library_ms']}")
+    # ring_azimuth beside the sequence it replaced, and the gather of its
+    # azimuths into the sorted order that took the third atan2's place
+    r = rows["ring_azimuth"]
+    ori = ring_azimuth.ring_azimuth(pts, lidar, n_scans)[2]
+    perm = torch.randperm(P, device=dev)
+    r["replaced_graph_ms"] = graph_ms(torch, lambda: former_ring_azimuth(
+        torch, pts, lidar, n_scans), 20)
+    r["gather_ms"] = graph_ms(torch, lambda: ori[perm], 100)
+    log(f"{tag}ring_azimuth {[P, 3]} ({lidar}): kernel {r['ms']:.4f} ms + the azimuths' gather "
+        f"{r['gather_ms']:.4f} ms, the sequence it replaced captured {r['replaced_graph_ms']:.4f} "
+        f"ms")
     return rows
+
+
+def pytree_index(tree, i):
+    """Row i of every tensor of a tensor or a tuple of tensors."""
+    return tuple(t[i] for t in tree) if isinstance(tree, tuple) else tree[i]
 
 
 def kabsch_cases(torch, dev, n=300):
@@ -1836,8 +1957,126 @@ def former_kabsch(torch, source, w, tgt, mask_q):
     return se3.mat_to_quat(R), mu_t - torch.matmul(R, mu_s[..., None])[..., 0]
 
 
+def former_chain_solve(torch, chain, b, free, mask_out):
+    """The sequence csrc/chain_solve.cu replaced: blocktri.solve as the port
+    composed it before that kernel (three batched matmuls, two
+    subtractions, a slice update and a stack a level) inside the masks of
+    its callers."""
+    Do_inv, L, R, root = chain
+    n, P = b.shape[0], Do_inv.shape[0] + 1
+    vec = b.dim() == 2
+    if free is not None:
+        b = torch.where(free.reshape((n,) + (1,) * (b.dim() - 1)), b, 0.0)
+    x = b[..., None] if vec else b
+    if P != n:
+        x = torch.cat([x, x.new_zeros((P - n,) + x.shape[1:])])
+    levels, off, m = [], 0, P // 2
+    while m >= 1:
+        levels.append((Do_inv[off:off + m], L[off:off + m], R[off:off + m]))
+        off, m = off + m, m // 2
+    stack = []
+    for D, Lm, Rm in levels:
+        bo, be = x[1::2], x[0::2]
+        Dinv_bo = torch.matmul(D, bo)
+        x = be - torch.matmul(Lm, Dinv_bo)
+        x[1:] -= torch.matmul(Rm.mT, Dinv_bo)[:-1]
+        stack.append(bo)
+    x = torch.matmul(root, x)
+    for (D, Lm, Rm), bo in zip(reversed(levels), reversed(stack)):
+        rhs = bo - torch.matmul(Lm.mT, x)
+        rhs[:-1] -= torch.matmul(Rm[:-1], x[1:])
+        xo = torch.matmul(D, rhs)
+        x = torch.stack([x, xo], dim=1).reshape((2 * x.shape[0],) + x.shape[1:])
+    x = x[:n]
+    x = x[..., 0] if vec else x
+    if mask_out:
+        x = torch.where(free.reshape((n,) + (1,) * (x.dim() - 1)), x, 0.0)
+    return x
+
+
+def chain_solve_plain(torch, chain, b, free, mask_out):
+    """chain_solve's plain version on a call's arguments (b [n, 6] or
+    [n, 6, C])."""
+    from scaloam_tpu_torch.ops.kernels import chain_solve
+
+    vec = b.dim() == 2
+    out = chain_solve.chain_solve_plain(*chain, b[..., None] if vec else b, free, mask_out)
+    return out[..., 0] if vec else out
+
+
+def chain_solve_row(torch, chain, b, free, mask_out, former_iters=20):
+    """csrc/chain_solve.cu on one call's arguments: ms captured and eager,
+    the plain version's ms, the captured ms of the sequence it replaced,
+    and its bound (the levels, the root, b, free and the output each moved
+    once; CHAIN_OPS_ROW a block row of a level and a column)."""
+    from scaloam_tpu_torch.ops.kernels import chain_solve
+
+    P, n = chain.Do_inv.shape[0] + 1, b.shape[0]
+    C = 1 if b.dim() == 2 else b.shape[2]
+    call = lambda: chain_solve.chain_solve(chain, b, free, mask_out)
+    row = dict(shape=list(b.shape), padded_nodes=P, masked_in=free is not None,
+               masked_out=mask_out, ms=graph_ms(torch, call, 100),
+               eager_ms=cuda_ms(torch, call, 200),
+               plain_ms=cuda_ms(torch, lambda: chain_solve_plain(torch, chain, b, free, mask_out),
+                                5),
+               replaced_graph_ms=graph_ms(torch, lambda: former_chain_solve(
+                   torch, chain, b, free, mask_out), former_iters),
+               library_ms=None)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        3 * (P - 1) * 144 + 144 + 2 * n * 24 * C + (0 if free is None else n),
+        C * ((P - 1) * CHAIN_OPS_ROW + CHAIN_OPS_ROOT))
+    return row
+
+
+def woodbury_solve_checks(torch, dev):
+    """csrc/chain_solve.cu on the wide solve of (a)'s Woodbury setup
+    (C^-1 V, [N, 6, 6L]) at 1024 / 16 and 4096 / 64, eager and spied: bit
+    for bit against the plain version, timed as chain_solve_row. Returns
+    {"N x 6 x C": row}."""
+    from scaloam_tpu_torch import compiled, config
+    from scaloam_tpu_torch.models import posegraph as pg
+    from scaloam_tpu_torch.ops.kernels import chain_solve
+    from scaloam_tpu_torch.types import Pose
+
+    rows, kernel = {}, chain_solve.chain_solve
+    for n, nl in PGO_TIERS:
+        _, oq, ot, loops = circle_chain(n, nl, seed=n)
+        cfg = chain_pgo_cfg(config.PGOConfig(), n, nl)
+        if not pg.uses_woodbury(n, nl, cfg):
+            continue
+        g = build_graph(torch, pg, Pose, cfg, oq, ot, loops, dev)
+        ks = torch.arange(n, device=dev)
+        free = (ks > 0) & (ks < g.n_nodes)
+        calls = []
+
+        def spy(*args):
+            calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args[1:]))
+            return kernel(*args)
+
+        chain_solve.chain_solve = spy
+        try:
+            with compiled.disabled():
+                factors = [pg._sanitize(f) for f in pg._linearize(g, cfg)]
+                _, D, D_loop = pg._gradient_and_diag(factors, n, pg.loop_plans(g))
+                wb = pg._woodbury_setup(factors, D, D_loop, free, cfg.lm_damping)
+        finally:
+            chain_solve.chain_solve = kernel
+        (b, fr, mask_out), = calls
+        chain = wb[0]
+        if not _bits_equal(torch, kernel(chain, b, fr, mask_out),
+                           chain_solve_plain(torch, chain, b, fr, mask_out)):
+            raise AssertionError(f"chain_solve {tuple(b.shape)}: differs from the plain version")
+        rows["x".join(map(str, b.shape))] = chain_solve_row(torch, chain, b, fr, mask_out, 3)
+    return rows
+
+
 def _bits_equal(torch, a, b) -> bool:
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _equal_bits(torch, a, b) -> bool:
+    """Float tensors equal bit for bit, others equal."""
+    return _bits_equal(torch, a, b) if a.is_floating_point() else torch.equal(a, b)
 
 
 def backend_kernel_checks(torch, dev, system, icp_call):
@@ -1845,9 +2084,11 @@ def backend_kernel_checks(torch, dev, system, icp_call):
     card, on every input that one eager loop verification of (b)
     (`icp_call`, a recorded call of icp.verify_loop) and one eager optimise
     of (b)'s final graph pass them (spied): csrc/kabsch_step.cu (ICP's
-    step) and csrc/hess_matvec.cu (the CG's matvec) bit for bit, each timed
-    captured beside the captured sequence it replaced (former_kabsch,
-    former_matvec) at the same inputs; csrc/kabsch.cu's rotation on the H's
+    step), csrc/hess_matvec.cu (the CG's matvec) and csrc/chain_solve.cu
+    (the CG's preconditioner, and the wide solve of (a)'s Woodbury setups,
+    woodbury_solve_checks) bit for bit, each timed captured beside the
+    captured sequence it replaced (former_kabsch, former_matvec,
+    former_chain_solve) at the same inputs; csrc/kabsch.cu's rotation on the H's
     the plain step computes from the recorded inputs and on kabsch_cases,
     timed beside torch.linalg.svd (which reads the device from the host; its
     host syncs counted); csrc/segment_sum.cu on its remaining calls (the
@@ -1860,10 +2101,11 @@ def backend_kernel_checks(torch, dev, system, icp_call):
     from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.models import posegraph as pg
     from scaloam_tpu_torch.ops import icp
-    from scaloam_tpu_torch.ops.kernels import hess_matvec, kabsch, segment_sum
+    from scaloam_tpu_torch.ops.kernels import chain_solve, hess_matvec, kabsch, segment_sum
 
     names = {"segment_sum": (segment_sum, "add"), "hess_matvec": (hess_matvec, "hess_matvec"),
-             "kabsch_step": (kabsch, "kabsch_step"), "kabsch": (kabsch, "kabsch_rotation")}
+             "kabsch_step": (kabsch, "kabsch_step"), "kabsch": (kabsch, "kabsch_rotation"),
+             "chain_solve": (chain_solve, "chain_solve")}
     kernels = {name: getattr(mod, attr) for name, (mod, attr) in names.items()}
     seen = {name: [] for name in names}
     clone = lambda t: t.clone() if torch.is_tensor(t) else t
@@ -1883,9 +2125,11 @@ def backend_kernel_checks(torch, dev, system, icp_call):
     finally:
         for name, (mod, attr) in names.items():
             setattr(mod, attr, kernels[name])
-    if seen["kabsch"] or not (seen["kabsch_step"] and seen["hess_matvec"]):
+    if seen["kabsch"] or not (seen["kabsch_step"] and seen["hess_matvec"]
+                              and seen["chain_solve"]):
         raise AssertionError(f"backend calls {[(k, len(v)) for k, v in seen.items()]}: want "
-                             f"the step and the matvec, never the rotation alone")
+                             f"the step, the matvec and the chain solve, never the rotation "
+                             f"alone")
     rows = {}
     # the Kabsch step: every call of the verification, bit for bit
     for src, w, tgt, mask_q in seen["kabsch_step"]:
@@ -1970,6 +2214,18 @@ def backend_kernel_checks(torch, dev, system, icp_call):
     rows["hess_matvec"]["bound_ms"], rows["hess_matvec"]["bound_by"] = bound_ms(
         node_bytes + slots * (2 * 144 + 24 + 2 * 8) + ends * 8 + N * 24,
         N * HMV_OPS_NODE + ends * HMV_OPS_LOOP_END)
+    # the chain solve: every call of the optimise, bit for bit, then (a)'s
+    # Woodbury setups
+    for chain, b, free, mask_out in seen["chain_solve"]:
+        if not _bits_equal(torch, chain_solve.chain_solve(chain, b, free, mask_out),
+                           chain_solve_plain(torch, chain, b, free, mask_out)):
+            raise AssertionError(f"chain_solve {tuple(b.shape)}: differs from the plain version")
+    chain, b, free, mask_out = seen["chain_solve"][0]
+    rows["chain_solve"] = dict(chain_solve_row(torch, chain, b, free, mask_out), max_abs_err=0.0,
+                               calls=len(seen["chain_solve"]))
+    rows["chain_solve"]["shapes"] = {"x".join(map(str, b.shape)): {
+        k: v for k, v in rows["chain_solve"].items() if k != "calls"},
+        **woodbury_solve_checks(torch, dev)}
     # segment sums: every remaining call of the optimise, bit for bit
     for base, rws, plan in seen["segment_sum"]:
         got = segment_sum.add(base, rws, plan)
@@ -2206,7 +2462,8 @@ def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
     torch.cuda.synchronize()
     ms_frame = (time.perf_counter() - t_start) * 1e3 / (n - WARM_FRAMES)
     launches = _launch_counts()
-    want = {"K1": n, "K2 A": n - 1, "K2 B": cfg.mapping.outer_iterations * n}
+    want = {"K1": n, "K2 A": n - 1, "K2 B": cfg.mapping.outer_iterations * n,
+            "ring_azimuth": n, "atan2": 0}
     _check_launches(f"{tag}front end ", launches, want)
     # The frames' features and K1's picks for (i), from the eager features
     # program on the same scans: a captured program's replay runs no spy
@@ -2536,10 +2793,11 @@ def _h_batched(torch, cfg, xyz, mask):
             t0 = time.perf_counter()
         _zero_launches()
         o, m, o_pose, m_pose = multiseq.frame_batch(o, m, xyz[f], mask[f], cfg)
-        want = {"K1": 1, "K2 A": int(f > 0), "K2 B": cfg.mapping.outer_iterations}
+        want = {"K1": 1, "K2 A": int(f > 0), "K2 B": cfg.mapping.outer_iterations,
+                "ring_azimuth": 1, "atan2": 0}
         # the first frame's odometry sweeps no candidates
         _check_launches(f"(h) B={B} frame {f}: ", _launch_counts(), want,
-                        ROUNDING_KERNELS if f > 0 else ("sum3_sq", "atan2"))
+                        PATH_ROUNDING_KERNELS if f > 0 else ("sum3_sq",))
         odom.append(_qt(o_pose, torch))
         mapped.append(_qt(m_pose, torch))
         # the states are donated (updated in place by the next frame)
@@ -3413,16 +3671,20 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
                 for name in g1},
             "launches_g2": g2["launches"][key]})
     f32_src = "scaloam_tpu_torch/csrc/f32ops.cu"
-    for key, replaces in (("sq_dist", "scaloam_tpu/ops/voxel.py:534"),
-                          ("sum3_sq", "scaloam_tpu/ops/gridmap.py:230"),
-                          ("atan2", "scaloam_tpu/ops/features.py:52")):
+    for key, source, replaces in (
+            ("sq_dist", f32_src, "scaloam_tpu/ops/voxel.py:534"),
+            ("sum3_sq", f32_src, "scaloam_tpu/ops/gridmap.py:230"),
+            ("atan2", f32_src, "scaloam_tpu/ops/features.py:52"),
+            ("ring_azimuth", "scaloam_tpu_torch/csrc/ring_azimuth.cu",
+             "scaloam_tpu/ops/features.py:49")):
         row = rows[key]
         kernels.append({
-            "name": key, "route": "cuda", "source": f32_src, "replaces": replaces,
+            "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_launches[key], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "eager_ms": row["eager_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "matched": True, "shape": row["shape"],
+            **{k: row[k] for k in ("replaced_graph_ms", "gather_ms") if k in row},
             "g1": {name: {k: g1[name]["kernels"][key][k] for k in (
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
                 for name in g1}})
@@ -3433,7 +3695,9 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
             ("hess_matvec", "scaloam_tpu_torch/csrc/hess_matvec.cu",
              "scaloam_tpu/models/posegraph.py:447"),
             ("kabsch_step", "scaloam_tpu_torch/csrc/kabsch_step.cu",
-             "scaloam_tpu/ops/icp.py:113")):
+             "scaloam_tpu/ops/icp.py:113"),
+            ("chain_solve", "scaloam_tpu_torch/csrc/chain_solve.cu",
+             "scaloam_tpu/ops/blocktri.py:201")):
         row = bk_rows[key]
         kernels.append({
             "name": key, "route": "cuda", "source": source, "replaces": replaces,

@@ -411,6 +411,12 @@ def _chain_factor_blocks(B_chain, D_blocks, damp, free_mask):
     return blocktri.factor(D_chain, B_chain)
 
 
+def _chain_precond(chain, free_mask):
+    """v -> where(free, C^-1 where(free, v, 0), 0), one launch a call on
+    the card (ops/kernels/chain_solve.py)."""
+    return lambda v: blocktri.solve(chain, v, free_mask, mask_out=True)
+
+
 def _masked(hess_mv, free_mask):
     """v -> where(free, hess_mv(where(free, v, 0)), 0)."""
     fm = free_mask[:, None]
@@ -447,14 +453,10 @@ def _damping(D, D_loop, damping: float):
 def _solve_cg(factors, g, D, D_loop, free_mask, damping: float, iters: int, plans):
     """CG preconditioned by the exact chain Hessian (loops in the matvec only)."""
     damp = _damping(D, D_loop, damping)
-    fm = free_mask[:, None]
     chain = _chain_factor(factors[0], D + D_loop, damp, free_mask)
 
-    def precond(v):
-        return torch.where(fm, blocktri.solve(chain, torch.where(fm, v, 0.0)), 0.0)
-
     return _run_pcg(lambda v: _hess_matvec(factors, v, damp, plans, free_mask), g, free_mask,
-                    precond, iters)
+                    _chain_precond(chain, free_mask), iters)
 
 
 def _woodbury_setup(factors, D, D_loop, free_mask, damping: float):
@@ -504,7 +506,7 @@ def _wb_precond(wb, loops, free_mask):
     fm = free_mask[:, None]
 
     def precond(v):
-        y = blocktri.solve(chain, torch.where(fm, v, 0.0))
+        y = blocktri.solve(chain, v, free_mask)
         t = (torch.einsum("lnc,ln->lc", ViT, y[loops.i])
              + torch.einsum("lnc,ln->lc", VjT, y[loops.j])).reshape(6 * L)
         y2 = torch.einsum("ncr,r->nc", Z, torch.matmul(Sinv, t))

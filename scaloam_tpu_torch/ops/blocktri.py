@@ -9,14 +9,28 @@ structure-of-arrays lists of 36 vectors would cost a launch per entry
 here). What changes results is kept: the pivot clamp sqrt(max(s, 1e-20))
 of the 6x6 Cholesky, the identity padding, the per-level `reg` floor, and
 the multi-RHS [N, 6, R] solve. Diagonal blocks are inverted at factor
-time.
+time, and the factor is packed once (`Chain`), so that the solve, one
+kernel launch a call on the card (ops/kernels/chain_solve.py), reads every
+level from three contiguous buffers.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import NamedTuple
 
 import torch
+
+from scaloam_tpu_torch.ops.kernels import chain_solve
+
+
+class Chain(NamedTuple):
+    """The packed factor of an N-block chain, P = N padded to a power of
+    two: level l (m = P >> (l + 1) blocks) at rows P - 2m .. P - m - 1."""
+
+    Do_inv: torch.Tensor  # [P - 1, 6, 6] the levels' inverted odd diagonal blocks
+    L: torch.Tensor  # [P - 1, 6, 6] coupling of odd block k to even block k
+    R: torch.Tensor  # [P - 1, 6, 6] coupling of odd block k to even block k + 1
+    root: torch.Tensor  # [6, 6] the inverse of the last reduced block
 
 
 def _chol66(A: torch.Tensor) -> torch.Tensor:
@@ -42,12 +56,11 @@ def _inv66(A: torch.Tensor) -> torch.Tensor:
     return torch.matmul(Linv.mT, Linv)
 
 
-def factor(D: torch.Tensor, B: torch.Tensor, reg: float = 1e-5) -> List[Tuple[torch.Tensor, ...]]:
+def factor(D: torch.Tensor, B: torch.Tensor, reg: float = 1e-5) -> Chain:
     """Cyclic-reduction factorization of (D [N, 6, 6], B [N, 6, 6]); B[i]
     couples (i, i+1) and B[N-1] is ignored. `reg` adds reg*mean(diag)*I to
     the reduced diagonal blocks after each level (caps the conditioning of
-    the f32 Schur updates; as a preconditioner the bias is harmless).
-    Returns per-level (Do_inv, L, R) and finally (root_inv,)."""
+    the f32 Schur updates; as a preconditioner the bias is harmless)."""
     n = D.shape[0]
     size = 1
     while size < n:
@@ -75,35 +88,19 @@ def factor(D: torch.Tensor, B: torch.Tensor, reg: float = 1e-5) -> List[Tuple[to
         B_new[-1].zero_()
         levels.append((Do_inv, L, R))
         D, B = D_new, B_new
-    levels.append((_inv66(D),))
-    return levels
+    if levels:  # packed once a factor, level 0 first
+        Do_inv, L, R = (torch.cat(parts) for parts in zip(*levels))
+    else:
+        Do_inv = L = R = D.new_zeros((0, 6, 6))
+    return Chain(Do_inv, L, R, _inv66(D)[0])
 
 
-def solve(levels: List[Tuple[torch.Tensor, ...]], b: torch.Tensor) -> torch.Tensor:
+def solve(chain: Chain, b: torch.Tensor, free: torch.Tensor | None = None,
+          mask_out: bool = False) -> torch.Tensor:
     """Solve H x = b from `factor`'s output: b [N, 6] -> [N, 6], or the
-    multi-RHS [N, 6, R] -> [N, 6, R]."""
-    n = b.shape[0]
-    vec = b.ndim == 2
-    x = b[..., None] if vec else b
-    total = levels[0][0].shape[0] * 2 if len(levels) > 1 else 1
-    if total != n:
-        x = torch.cat([x, x.new_zeros((total - n,) + x.shape[1:])])
-    stack = []
-    for Do_inv, L, R in levels[:-1]:
-        bo, be = x[1::2], x[0::2]
-        Dinv_bo = torch.matmul(Do_inv, bo)
-        x = be - torch.matmul(L, Dinv_bo)
-        x[1:] -= torch.matmul(R.mT, Dinv_bo)[:-1]
-        stack.append(bo)
-    x = torch.matmul(levels[-1][0], x)
-    for (Do_inv, L, R), bo in zip(reversed(levels[:-1]), reversed(stack)):
-        # odd x: x_o[k] = Do^-1 (bo[k] - L[k]^T x_e[k] - R[k] x_e[k+1])
-        rhs = bo - torch.matmul(L.mT, x)
-        rhs[:-1] -= torch.matmul(R[:-1], x[1:])
-        xo = torch.matmul(Do_inv, rhs)
-        x = torch.stack([x, xo], dim=1).reshape((2 * x.shape[0],) + x.shape[1:])
-    x = x[:n]
-    return x[..., 0] if vec else x
+    multi-RHS [N, 6, R] -> [N, 6, R]; with `free`, rows where it is False
+    enter as 0 and, with `mask_out`, leave as 0 (chain_solve.chain_solve)."""
+    return chain_solve.chain_solve(chain, b, free, mask_out)
 
 
 def solve_tridiag(D: torch.Tensor, B: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

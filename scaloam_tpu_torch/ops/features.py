@@ -1,7 +1,8 @@
 """Curvature feature extraction (counterpart of scaloam_tpu/ops/features.py).
 
-Per scan: NaN / near-range removal, ring id per lidar model, azimuth
-unwrap to relative scan time, the [n_scans, W] range image, 11-point
+Per scan: NaN / near-range removal, ring id per lidar model and raw
+azimuth (one kernel, ops/kernels/ring_azimuth.py), azimuth unwrap to
+relative scan time, the [n_scans, W] range image, 11-point
 curvature, neighbor-suppression reach, greedy selection (kernel K1, see
 ops/kernels/selection.py) and the five output clouds.
 
@@ -22,10 +23,9 @@ import torch
 from scaloam_tpu_torch import compiled
 from scaloam_tpu_torch.config import SlamConfig
 from scaloam_tpu_torch.ops import f32, voxel
-from scaloam_tpu_torch.ops.kernels import f32ops, selection
+from scaloam_tpu_torch.ops.kernels import f32ops, ring_azimuth, selection
 from scaloam_tpu_torch.types import FeatureCloud, LidarScan, RangeImage, ScanFeatures
 
-_DEG = 180.0 / math.pi
 _PI = math.pi
 
 
@@ -62,48 +62,6 @@ def _blocked_prefix(x: torch.Tensor, base: int = 16) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Ring id per lidar model
-# ---------------------------------------------------------------------------
-
-
-def _ring_id(xyz: torch.Tensor, lidar_type: str, n_scans: int):
-    """Vertical angle -> (ring id, valid). C++ int() truncates toward zero."""
-    x, y, z = xyz.unbind(-1)
-    # The top HDL-64 beam sits exactly on the 2 degree bound, so the last
-    # ulp of the angle decides validity there: form sqrt(x^2 + y^2) as the
-    # reference's compiled code does (one fused multiply-add, correctly
-    # rounded square root).
-    hyp = torch.sqrt(f32.fma_f32(x, x, y * y).double()).float()
-    # atan2 as the reference's C library rounds it: beams of the synthetic
-    # OS1-64 sit exactly on its ring bounds, where the last ulp decides.
-    rad = f32ops.atan2(z, hyp)
-    angle = rad * _DEG
-
-    def trunc(v):
-        return torch.trunc(v).to(torch.int32)
-
-    # Where the angle feeds one sum, the reference's compiled code forms
-    # angle + c as one fused multiply-add of the radians.
-    if lidar_type == "VLP16":
-        sid = trunc(f32.fma_f32(rad, _DEG, 15.0) / 2.0 + 0.5)
-        ok = (sid >= 0) & (sid <= n_scans - 1)
-    elif lidar_type == "HDL32":
-        sid = trunc(f32.fma_f32(rad, _DEG, 92.0 / 3.0) * 3.0 / 4.0)
-        ok = (sid >= 0) & (sid <= n_scans - 1)
-    elif lidar_type == "HDL64":
-        upper = trunc((2.0 - angle) * 3.0 + 0.5)
-        lower = n_scans // 2 + trunc((-8.83 - angle) * 2.0 + 0.5)
-        sid = torch.where(angle >= -8.83, upper, lower)
-        ok = (angle <= 2.0) & (angle >= -24.33) & (sid >= 0) & (sid <= 50)
-    elif lidar_type == "OS1-64":
-        sid = trunc(f32.fma_f32(rad, _DEG, 22.5) / 2.0 + 0.5)
-        ok = (sid >= 0) & (sid <= n_scans - 1)
-    else:
-        raise ValueError(f"unknown lidar_type {lidar_type}")
-    return torch.clamp(sid, 0, n_scans - 1), ok
-
-
-# ---------------------------------------------------------------------------
 # Azimuth unwrap -> relative time
 # ---------------------------------------------------------------------------
 
@@ -113,11 +71,11 @@ def _first_true(b: torch.Tensor) -> torch.Tensor:
     return torch.argmax(b.to(torch.int32))
 
 
-def _azimuth_scalars(xyz: torch.Tensor, valid: torch.Tensor, flip_valid: torch.Tensor):
+def _azimuth_scalars(ori_raw: torch.Tensor, valid: torch.Tensor, flip_valid: torch.Tensor):
     """Scalar side of the sequential halfPassed unwrap: sweep start/end
-    azimuths, the index of the first flip and whether any point flips."""
-    n = xyz.shape[0]
-    ori_raw = -f32ops.atan2(xyz[:, 1], xyz[:, 0])
+    azimuths, the index of the first flip and whether any point flips, from
+    the stream's raw azimuths -atan2(y, x) (ring_azimuth's third output)."""
+    n = ori_raw.shape[0]
     first = _first_true(valid)
     last = n - 1 - _first_true(torch.flip(valid, dims=[0]))
     # index_select, not ori_raw[first]: a 0-d index tensor would be read
@@ -138,10 +96,10 @@ def _azimuth_scalars(xyz: torch.Tensor, valid: torch.Tensor, flip_valid: torch.T
     return start_ori, end_ori, _first_true(flip), torch.any(flip)
 
 
-def _relative_time_at(x, y, idx, start_ori, end_ori, first_flip, any_flip):
-    """Per-point half of the unwrap, evaluable in any order (idx is the
-    original stream position, deciding halfPassed)."""
-    ori_raw = -f32ops.atan2(y, x)
+def _relative_time_at(ori_raw, idx, start_ori, end_ori, first_flip, any_flip):
+    """Per-point half of the unwrap, evaluable in any order: ori_raw is the
+    points' -atan2(y, x), idx their original stream position, deciding
+    halfPassed."""
     o1 = ori_raw
     o1 = torch.where(o1 < start_ori - _PI / 2, o1 + 2 * _PI, o1)
     o1 = torch.where(o1 > start_ori + 3 * _PI / 2, o1 - 2 * _PI, o1)
@@ -159,7 +117,8 @@ def _relative_time_at(x, y, idx, start_ori, end_ori, first_flip, any_flip):
 # ---------------------------------------------------------------------------
 
 
-def build_range_image(xyz, ring, valid, n_scans: int, width: int, rel_scalars) -> RangeImage:
+def build_range_image(xyz, ring, valid, ori_raw, n_scans: int, width: int,
+                      rel_scalars) -> RangeImage:
     """Bucket stream-ordered points into [n_scans, width], preserving stream
     order within a ring: one sort on the unique key ring << 17 | index, then
     every row is a contiguous slice of the sorted stream (one gather)."""
@@ -173,7 +132,7 @@ def build_range_image(xyz, ring, valid, n_scans: int, width: int, rel_scalars) -
     ring_s = (key_s >> 17).contiguous()
     idx_s = key_s & ((1 << 17) - 1)
     xs = xyz[order]
-    rel_s = _relative_time_at(xs[:, 0], xs[:, 1], idx_s, *rel_scalars)
+    rel_s = _relative_time_at(ori_raw[order], idx_s, *rel_scalars)
 
     # Each ring's start in the sorted stream: the count of keys below it (a
     # left searchsorted; counted, since under vmap searchsorted copies its
@@ -268,10 +227,10 @@ def selection_inputs(scan: LidarScan, cfg: SlamConfig) -> SelectionInputs:
     finite = torch.all(torch.isfinite(xyz), dim=-1)
     valid = mask & finite & (f32ops.sum3_sq(xyz) >= sensor.minimum_range**2)
 
-    ring, ring_ok = _ring_id(xyz, sensor.lidar_type, S)
-    rel_scalars = _azimuth_scalars(xyz, valid, valid & ring_ok)
+    ring, ring_ok, ori_raw = ring_azimuth.ring_azimuth(xyz, sensor.lidar_type, S)
+    rel_scalars = _azimuth_scalars(ori_raw, valid, valid & ring_ok)
     valid = valid & ring_ok
-    ri = build_range_image(xyz, ring, valid, S, W, rel_scalars)
+    ri = build_range_image(xyz, ring, valid, ori_raw, S, W, rel_scalars)
 
     R = feat.curvature_window
     curv = _curvature(ri.xyz, R)

@@ -26,7 +26,7 @@ import torch.distributed as dist
 
 from scaloam_tpu_torch.config import PGOConfig
 from scaloam_tpu_torch.models import posegraph as pg
-from scaloam_tpu_torch.ops import blocktri, se3
+from scaloam_tpu_torch.ops import se3
 from scaloam_tpu_torch.ops.kernels import segment_sum
 from scaloam_tpu_torch.parallel import mesh as mesh_mod
 from scaloam_tpu_torch.parallel.mesh import KF_AXIS
@@ -100,12 +100,8 @@ def optimize_sharded(graph: pg.PoseGraph, cfg: PGOConfig, mesh,
         g, D, B = g.reshape(N, 6), D.reshape(N, 6, 6), B.reshape(N, 6, 6)
         damp = pg._damping(D, 0.0, cfg.lm_damping)
         chain = pg._chain_factor_blocks(B, D, damp, free)
-
-        def precond(v):
-            return torch.where(fm, blocktri.solve(chain, torch.where(fm, v, 0.0)), 0.0)
-
         delta = pg._run_pcg(pg._masked(lambda v: _matvec(factors, v, damp, group, plans), free),
-                            g, free, precond, cg_iters)
+                            g, free, pg._chain_precond(chain, free), cg_iters)
         new = se3.compose(graph.poses, se3.exp_se3(delta))
         graph = graph._replace(poses=Pose(torch.where(fm, new.quat, graph.poses.quat),
                                           torch.where(fm, new.trans, graph.poses.trans)))

@@ -618,6 +618,161 @@ def test_kabsch_step_folds_a_vmapped_batch_into_one_launch(dev):
 
 
 # ---------------------------------------------------------------------------
+# the front end's ring id and azimuth pass, the optimise's chain solve
+# ---------------------------------------------------------------------------
+
+
+def _same_bits(a, b):
+    a, b = a.cpu(), b.cpu()
+    return a.dtype == b.dtype and (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                   if a.is_floating_point() else torch.equal(a, b))
+
+
+def _ring_points(lidar, seed):
+    """A synthetic frame of the sensor, points on its ring bounds, random
+    points at every angle and the origin."""
+    import chip_smoke
+
+    n_scans = chip_smoke.RING_BOUNDS[lidar][0]
+    pts = synthetic.simulate_scan(synthetic.make_world(seed), np.array([0.3, -0.2, 1.7]), 0.3,
+                                  n_scans=n_scans, n_azimuth=512, lidar_type=lidar, seed=seed)
+    rand = np.random.default_rng(seed).uniform(-100, 100, (4096, 3))
+    return torch.from_numpy(np.concatenate([
+        pts, chip_smoke.ring_bound_points(lidar, seed), rand, np.zeros((4, 3))]).astype(
+            np.float32)), n_scans
+
+
+@pytest.mark.parametrize("lidar", ["VLP16", "HDL32", "HDL64", "OS1-64"])
+def test_ring_azimuth_kernel_matches_plain(dev, lidar):
+    """Bit for bit against the plain version on the card and on the CPU,
+    one launch a call."""
+    from scaloam_tpu_torch.ops.kernels import ring_azimuth
+
+    pts, n_scans = _ring_points(lidar, 3)
+    before = ring_azimuth.ring_azimuth.launches
+    got = ring_azimuth.ring_azimuth(pts.to(dev), lidar, n_scans)
+    assert ring_azimuth.ring_azimuth.launches == before + 1
+    for want in (ring_azimuth.ring_azimuth_plain(pts.to(dev), lidar, n_scans),
+                 ring_azimuth.ring_azimuth_plain(pts, lidar, n_scans)):
+        assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert got[1].any() and not got[1].all()
+
+
+def test_ring_azimuth_folds_a_vmapped_batch_into_one_launch(dev):
+    from scaloam_tpu_torch.ops.kernels import ring_azimuth
+
+    batch = torch.stack([_ring_points("OS1-64", s)[0][:20000] for s in range(8)]).to(dev)
+    before = ring_azimuth.ring_azimuth.launches
+    got = torch.func.vmap(lambda p: ring_azimuth.ring_azimuth(p, "OS1-64", 64))(batch)
+    assert ring_azimuth.ring_azimuth.launches == before + 1
+    for b in range(8):
+        one = ring_azimuth.ring_azimuth(batch[b], "OS1-64", 64)
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one))
+
+
+def test_card_sqrt_is_the_float64_root_rounded_once(dev):
+    """ring_azimuth's __fsqrt_rn (sqrt.rn.f32, as torch.sqrt on the card)
+    against ops/f32.py's sqrt (the float64 root rounded once, the plain
+    version's), over positive float32 values of every exponent."""
+    from scaloam_tpu_torch.ops import f32
+
+    bits = torch.randint(0x00800000, 0x7F7FFFFF, (1 << 20,), generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int64).to(torch.int32)
+    x = bits.view(torch.float32)
+    got = torch.sqrt(x.to(dev))
+    assert _same_bits(got, f32.sqrt(x.to(dev))) and _same_bits(got, f32.sqrt(x))
+
+
+def _solve_chain(n, seed, reg=1e-5):
+    """The factor of a random SPD chain of n blocks (on the CPU)."""
+    from scaloam_tpu_torch.ops import blocktri
+
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, 6, 6)).astype(np.float32)
+    D = np.einsum("nij,nkj->nik", A, A) + 6.0 * np.eye(6, dtype=np.float32)
+    B = 0.4 * rng.normal(size=(n, 6, 6)).astype(np.float32)
+    return blocktri.factor(torch.from_numpy(D), torch.from_numpy(B), reg=reg)
+
+
+@pytest.mark.parametrize("n,C", [(1, None), (13, None), (256, None), (100, 40), (300, 5),
+                                 (1000, None), (1024, 96), (4096, None), (4096, 384),
+                                 (8192, None), (9000, None)])
+def test_chain_solve_kernel_matches_plain(dev, n, C):
+    """Bit for bit against the plain version on the card and on the CPU,
+    unmasked, masked on the way in, and on both sides; one launch a call.
+    Up to 256 nodes one block a group of 32 columns stages the factor (40
+    columns: a second, ragged group); beyond, a cluster of 8 blocks a group
+    spreads the state (9000 nodes pad to 16384)."""
+    from scaloam_tpu_torch.ops.kernels import chain_solve
+
+    chain = _solve_chain(n, n)
+    rng = np.random.default_rng(n + 1)
+    b = torch.from_numpy(rng.normal(size=(n, 6) if C is None else (n, 6, C)).astype(np.float32))
+    free = torch.from_numpy(rng.uniform(size=n) > 0.2)
+    on_card = type(chain)(*(t.to(dev) for t in chain))
+    for fr, mask_out in ((None, False), (free, False), (free, True)):
+        before = chain_solve.chain_solve.launches
+        got = chain_solve.chain_solve(on_card, b.to(dev), None if fr is None else fr.to(dev),
+                                      mask_out)
+        assert chain_solve.chain_solve.launches == before + 1
+        vec = b.dim() == 2
+        for ch, bb, ff in ((on_card, b.to(dev), None if fr is None else fr.to(dev)),
+                           (chain, b, fr)):
+            want = chain_solve.chain_solve_plain(*ch, bb[..., None] if vec else bb, ff, mask_out)
+            assert _same_bits(got, want[..., 0] if vec else want)
+
+
+def _block_thomas(D, B, b):
+    """float64 block-tridiagonal solve: H[i, i] = D[i], H[i, i + 1] = B[i]."""
+    n = D.shape[0]
+    Dp, bp = D.copy(), b.copy()
+    for i in range(1, n):
+        M = B[i - 1].T @ np.linalg.inv(Dp[i - 1])
+        Dp[i] = D[i] - M @ B[i - 1]
+        bp[i] = b[i] - M @ bp[i - 1]
+    x = np.zeros_like(b)
+    x[-1] = np.linalg.solve(Dp[-1], bp[-1])
+    for i in range(n - 2, -1, -1):
+        x[i] = np.linalg.solve(Dp[i], bp[i] - B[i] @ x[i + 1])
+    return x
+
+
+@pytest.mark.parametrize("nodes,loops,lap,tol", [(256, 64, 64, 1e-4), (1024, 16, 512, 1e-3)])
+def test_chain_solve_on_optimise_chains_matches_float64(dev, nodes, loops, lap, tol):
+    """The chain-CG preconditioner's system of (a)'s drifted circle chains
+    (odometry variances 1e-6 rotation / 1e-4 translation: diagonal blocks
+    up to ~2e6), factored without the per-level floor, against a float64
+    block-tridiagonal solve: within tol of the largest entry (float32
+    cyclic reduction; the error grows with the chain's length), and
+    equal to the plain version on the CPU bit for bit."""
+    import chip_smoke
+    from scaloam_tpu_torch.ops import blocktri
+    from scaloam_tpu_torch.ops.kernels import chain_solve
+
+    _, oq, ot, lps = chip_smoke.circle_chain(nodes, loops, seed=nodes, lap=lap)
+    cfg = chip_smoke.chain_pgo_cfg(config.PGOConfig(), nodes, loops)
+    g = chip_smoke.build_graph(torch, pg, Pose, cfg, oq, ot, lps, dev)
+    factors = [pg._sanitize(f) for f in pg._linearize(g, cfg)]
+    _, D, D_loop = pg._gradient_and_diag(factors, nodes, pg.loop_plans(g))
+    damp = pg._damping(D, D_loop, cfg.lm_damping)
+    ks = torch.arange(nodes, device=dev)
+    free = (ks > 0) & (ks < g.n_nodes)
+    eye6 = torch.eye(6, device=dev)
+    Dc = torch.where(free[:, None, None], D + D_loop + damp[:, :, None] * eye6 + 1e-6 * eye6, eye6)
+    pair = free & torch.roll(free, -1)
+    pair[-1] = False
+    Bc = torch.where(pair[:, None, None], pg._JtWJ(factors[0].Ji, factors[0].W, factors[0].Jj), 0.0)
+    chain = blocktri.factor(Dc, Bc, reg=0.0)
+    b = torch.from_numpy(np.random.default_rng(0).normal(size=(nodes, 6)).astype(np.float32))
+    got = blocktri.solve(chain, b.to(dev), free, mask_out=True).cpu()
+    x = _block_thomas(Dc.double().cpu().numpy(), Bc.double().cpu().numpy(),
+                      torch.where(free.cpu()[:, None], b, 0.0).double().numpy())
+    assert np.abs(got.numpy() - x).max() / np.abs(x).max() < tol
+    cpu = type(chain)(*(t.cpu() for t in chain))
+    assert _same_bits(got, chain_solve.chain_solve_plain(*cpu, b[..., None], free.cpu(), True)[..., 0])
+
+
+# ---------------------------------------------------------------------------
 # captured programs (compiled.py) against the same programs eager
 # ---------------------------------------------------------------------------
 

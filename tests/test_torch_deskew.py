@@ -40,6 +40,7 @@ from scaloam_tpu_torch import config as tconfig, convert
 from scaloam_tpu_torch.models import odometry as todo
 from scaloam_tpu_torch.ops import correspond as tcor, features as tfeat, gn as tgn
 from scaloam_tpu_torch.ops import residuals as tres, se3 as tse3
+from scaloam_tpu_torch.ops.kernels import ring_azimuth
 from scaloam_tpu_torch.types import LidarScan as TScan, Pose as TPose
 from torch_threads import two_threads  # noqa: F401  (autouse)
 
@@ -276,14 +277,13 @@ def test_relative_time_matches_compiled_reference_exactly(seed):
         flip_valid = valid & (rng.uniform(size=n) > 0.05)
         js = [np.asarray(v) for v in scalars(jnp.asarray(xyz), jnp.asarray(valid),
                                               jnp.asarray(flip_valid))]
-        ts = tfeat._azimuth_scalars(torch.tensor(xyz), torch.tensor(valid),
-                                    torch.tensor(flip_valid))
+        ori_raw = ring_azimuth.ring_azimuth(torch.tensor(xyz), "HDL64", 64)[2]
+        ts = tfeat._azimuth_scalars(ori_raw, torch.tensor(valid), torch.tensor(flip_valid))
         for j, t in zip(js, ts):
             np.testing.assert_array_equal(t.numpy(), j)
         idx = rng.permutation(n).astype(np.int32)
         jr = np.asarray(rel_at(jnp.asarray(xy[:, 0]), jnp.asarray(xy[:, 1]), jnp.asarray(idx), *js))
-        tr = tfeat._relative_time_at(torch.tensor(xy[:, 0]), torch.tensor(xy[:, 1]),
-                                     torch.tensor(idx), *ts)
+        tr = tfeat._relative_time_at(ori_raw, torch.tensor(idx), *ts)
         np.testing.assert_array_equal(tr.numpy(), jr)
         ori = -np.arctan2(xy[:, 1], xy[:, 0])
         first, last = np.argmax(valid), n - 1 - np.argmax(valid[::-1])

@@ -14,15 +14,19 @@ then `--ticks` replays, each timed as
   stream;
 and the ticks' span on the host's clock (Unix seconds), to set beside a
 log of the card's clocks. Where wall exceeds device by more than a
-launch, the host holds the card back.
+launch, the host holds the card back. Each tier also reports its
+kernels' launches a replay (chip_smoke's backend counters over the ticks:
+the matvec, the chain solve, the segment sums) and, after every tier's
+ticks, the device operations and host launches of one more replay under
+torch.profiler (a profiled process's later replays are slower on the
+host, so no tier is timed after one).
 
-With --profile, one more replay a tier runs under torch.profiler: its
-device operations, their summed device time, the kernels that take the
-most device time (name, count, us), and the idle time between them (the
-gaps, summed by the operation that follows each), so that two processes
-whose replays differ can be put side by side. A profiled process's later
-replays are slower on the host. --nodes N[,N...] runs those tiers in that
-order (by default all four, smallest first).
+With --profile, that replay also gives their summed device time, the
+kernels that take the most device time (name, count, us), and the idle
+time between them (the gaps, summed by the operation that follows each),
+so that two processes whose replays differ can be put side by side.
+--nodes N[,N...] runs those tiers in that order (by default all four,
+smallest first).
 
 Run from the repository root on a machine with a CUDA GPU:
 
@@ -77,7 +81,8 @@ def main(argv) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda")
-    rows = []
+    counters = chip_smoke._backend_counters()
+    rows, graphs = [], []
     for n, nl, lap in tiers:
         _, oq, ot, loops = chip_smoke.circle_chain(n, nl, seed=n, lap=lap)
         cfg = chip_smoke.chain_pgo_cfg(config.PGOConfig(), n, nl)
@@ -88,6 +93,8 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         wall, host, device = [], [], []
+        for c in counters.values():
+            c.launches = 0
         span = [time.time()]  # the ticks' start and end on the host's clock
         for _ in range(ticks):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -104,13 +111,22 @@ def main(argv) -> int:
             device.append(start.elapsed_time(end))
         span.append(time.time())
         med = lambda xs: float(np.median(xs))
+        launches = {name: c.launches / ticks for name, c in counters.items()}
         rows.append(dict(nodes=n, loops=nl, first_call_ms=first_ms, wall_ms=wall, host_ms=host,
                          device_ms=device, wall_median=med(wall), host_median=med(host),
-                         device_median=med(device), ticks_unix_s=span))
-        if profiled:
-            rows[-1]["profile"] = device_profile(torch, lambda: pg.optimize(g, cfg))
+                         device_median=med(device), ticks_unix_s=span,
+                         kernel_launches_per_replay=launches))
+        graphs.append((g, cfg))
         print(f"{n} nodes / {nl} loops: wall {med(wall):.2f} ms, host {med(host):.2f}, "
-              f"device {med(device):.2f} (medians of {ticks})", file=sys.stderr, flush=True)
+              f"device {med(device):.2f} (medians of {ticks}); launches a replay {launches}",
+              file=sys.stderr, flush=True)
+    for row, (g, cfg) in zip(rows, graphs):
+        call = lambda: pg.optimize(g, cfg)
+        _, row["device_operations"], row["host_launches"] = chip_smoke.launch_profile(torch, call)
+        if profiled:
+            row["profile"] = device_profile(torch, call)
+        print(f"{row['nodes']} nodes: {row['device_operations']} device operations, "
+              f"{row['host_launches']} host launches a replay", file=sys.stderr, flush=True)
     print(json.dumps(dict(root=root, ticks=ticks, tiers=rows)), flush=True)
     return 0
 
