@@ -1,0 +1,8 @@
+"""Layer: compile boundary. As boundary_mb_per_scan, in the cells paced by
+one stream; moves scans_per_s.stream."""
+
+from benchlib import program
+
+
+def read(run):
+    return program.boundary_mb_per_scan(program.records())

@@ -47,6 +47,14 @@ ops and round otherwise.
   and input buffers. They are freed once the step's last replay has run
   (an event behind it, polled at the step's next call or drop), so the
   step's later captures reuse their blocks of the pool.
+- Spans (`utils.timing`, recorded only while a profiler session records):
+  `compiled.key` (bind, flatten and key; it precedes the
+  call's other span, since the key decides what the call is), then
+  `compiled.capture:<step>` for a first call or `compiled.replay:<step>`
+  for a replay, inside which `compiled.copy_in`, `compiled.launch` and
+  `compiled.outputs` carry the bytes each part of the boundary moves.
+  Those figures are fixed per key at capture (`boundary_bytes` and the
+  graph's own copies), so a replay adds no per-leaf work for them.
 - The wrapper calls `fn` itself on CPU tensors (the plain path the caller
   asked for), inside another capture or eager run of this module (a
   program's inner steps are part of it, as nested `jax.jit`s are), under
@@ -67,6 +75,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+
+from scaloam_tpu_torch.utils import timing
 
 _local = threading.local()  # .inline: eager / capture depth; .disabled: disabled() depth;
 # .tally: the launches of the capture running on this thread
@@ -118,9 +128,12 @@ def disabled():
 class _Entry:
     """One captured graph: its static input buffers (None for non-tensor
     leaves), its outputs, which output leaves write back into which input
-    leaves, and the launch counts of one replay."""
+    leaves, the launch counts of one replay, and the bytes one replay
+    moves at the boundary: (copied in, copied into the buffers inside the
+    graph, written back, cloned)."""
 
-    __slots__ = ("graph", "static_in", "out_leaves", "out_spec", "donated", "launches")
+    __slots__ = ("graph", "static_in", "out_leaves", "out_spec", "donated", "launches",
+                 "bytes")
 
 
 class Compiled:
@@ -143,23 +156,30 @@ class Compiled:
         self._replaying = threading.Lock()  # one replay at a time
         self._done: Dict[torch.device, torch.cuda.Event] = {}  # each device's last replay
         self._retired: List[Tuple] = []  # (event or None, what it keeps alive) from drop()
+        step = f"{fn.__module__.removeprefix('scaloam_tpu_torch.')}.{fn.__name__}"
+        self._spans = (f"compiled.capture:{step}", f"compiled.replay:{step}")
         self.captures = 0  # graphs captured (one a key)
         self.dropped = 0  # keys dropped with an outgrown tier
         _steps.add(self)
 
     def __call__(self, *args, **kwargs):
-        bound = self._sig.bind(*args, **kwargs)
-        bound.apply_defaults()
-        arguments = bound.arguments
-        dynamic = [n for n in arguments if n not in self._static]
-        per_arg = [pytree.tree_flatten(arguments[n]) for n in dynamic]
-        leaves = [leaf for flat, _ in per_arg for leaf in flat]
-        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        if not self._compiles(tensors):
+        if _depth("disabled") or _depth("inline"):
             return self.__wrapped__(*args, **kwargs)
-        key = (tuple((n, arguments[n]) for n in self._static),
-               tuple(spec for _, spec in per_arg),
-               tuple(_leaf_key(x) for x in leaves))
+        with timing.span("compiled.key") as s:
+            bound = self._sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            arguments = bound.arguments
+            dynamic = [n for n in arguments if n not in self._static]
+            per_arg = [pytree.tree_flatten(arguments[n]) for n in dynamic]
+            leaves = [leaf for flat, _ in per_arg for leaf in flat]
+            compiles = self._compiles([x for x in leaves if isinstance(x, torch.Tensor)])
+            if compiles:
+                key = (tuple((n, arguments[n]) for n in self._static),
+                       tuple(spec for _, spec in per_arg),
+                       tuple(_leaf_key(x) for x in leaves))
+                s.add("compiled.leaves", len(leaves))
+        if not compiles:
+            return self.__wrapped__(*args, **kwargs)
         with self._lock:
             if self._retired:
                 self._free_retired()
@@ -169,7 +189,7 @@ class Compiled:
         return self._replay(entry, leaves)
 
     def _compiles(self, tensors: List[torch.Tensor]) -> bool:
-        if not tensors or _depth("disabled") or _depth("inline"):
+        if not tensors:
             return False
         if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in tensors):
             return False
@@ -189,7 +209,7 @@ class Compiled:
     def _first_call(self, key, arguments, dynamic, per_arg, leaves):
         """Run eagerly, then capture over the step's input buffers."""
         dev = next(x for x in leaves if isinstance(x, torch.Tensor)).device
-        with torch.cuda.device(dev):
+        with timing.span(self._spans[0]), torch.cuda.device(dev):
             buffers = self._input_buffers(leaves)
             out = self._call(arguments, dynamic, leaves)
             if dev not in self._pools:
@@ -202,12 +222,12 @@ class Compiled:
                                         [b if b is not None else x for b, x in zip(buffers, leaves)])
                 donated = self._donated(static_out, per_arg, dynamic)
                 out_leaves, spec = pytree.tree_flatten(static_out)
-                _keep_in_buffers(donated, buffers, out_leaves)
-                return out_leaves, spec, donated
+                kept = _keep_in_buffers(donated, buffers, out_leaves)
+                return out_leaves, spec, donated, kept
 
             entry = _Entry()
             with _tallied() as tally:
-                entry.graph, (out_leaves, entry.out_spec, entry.donated) = _capture(
+                entry.graph, (out_leaves, entry.out_spec, entry.donated, kept) = _capture(
                     self._pools[dev], run)
             entry.launches = list(tally.items())
             entry.static_in = buffers
@@ -215,6 +235,8 @@ class Compiled:
             # of it is free for the step's other keys once this ends.
             entry.out_leaves = [buffers[entry.donated[o]] if o in entry.donated else y
                                 for o, y in enumerate(out_leaves)]
+            copy_in, write_back, clone = boundary_bytes(leaves, entry.donated, entry.out_leaves)
+            entry.bytes = (copy_in, kept, write_back, clone)
             self._cache[key] = entry
             self.captures += 1
             # The eager result; an output that is a donated input keeps the
@@ -237,21 +259,29 @@ class Compiled:
 
     def _replay(self, entry: _Entry, leaves: List[Any]):
         dev = next(x for x in leaves if isinstance(x, torch.Tensor)).device
-        with torch.cuda.device(dev), self._replaying:
+        copy_in, kept, write_back, clone = entry.bytes
+        with timing.span(self._spans[1]), torch.cuda.device(dev), self._replaying:
             stream = torch.cuda.current_stream()
             done = self._done.get(dev)
             if done is not None:  # the pool's last user is through with it
                 stream.wait_event(done)
-            _copy([b for b in entry.static_in if b is not None],
-                  [x for b, x in zip(entry.static_in, leaves) if b is not None])
-            entry.graph.replay()
-            out = list(entry.out_leaves)
-            fresh = [o for o, y in enumerate(out)
-                     if isinstance(y, torch.Tensor) and o not in entry.donated]
-            for o in fresh:
-                out[o] = torch.empty_like(entry.out_leaves[o])
-            _copy([out[o] for o in fresh], [entry.out_leaves[o] for o in fresh])
-            out = _write_back(entry.donated, leaves, out)
+            with timing.span("compiled.copy_in") as s:
+                _copy([b for b in entry.static_in if b is not None],
+                      [x for b, x in zip(entry.static_in, leaves) if b is not None])
+                s.add("compiled.copy_in_bytes", copy_in)
+            with timing.span("compiled.launch") as s:
+                entry.graph.replay()
+                s.add("compiled.keep_bytes", kept)
+            with timing.span("compiled.outputs") as s:
+                out = list(entry.out_leaves)
+                fresh = [o for o, y in enumerate(out)
+                         if isinstance(y, torch.Tensor) and o not in entry.donated]
+                for o in fresh:
+                    out[o] = torch.empty_like(entry.out_leaves[o])
+                _copy([out[o] for o in fresh], [entry.out_leaves[o] for o in fresh])
+                out = _write_back(entry.donated, leaves, out)
+                s.add("compiled.write_back_bytes", write_back)
+                s.add("compiled.clone_bytes", clone)
             if done is None:
                 done = self._done[dev] = torch.cuda.Event()
             done.record(stream)
@@ -392,22 +422,49 @@ def _copy(dsts: List[torch.Tensor], srcs: List[torch.Tensor]) -> None:
 
 
 def _keep_in_buffers(donated: Dict[int, int], buffers: List[Optional[torch.Tensor]],
-                     out_leaves: List[Any]) -> None:
+                     out_leaves: List[Any]) -> int:
     """Inside the capture: copy each donated output into its input buffer,
     so the graph leaves the new state there. Any output that shares memory
     with a buffer is cloned before a copy writes one: a donated output to
     be copied, and another output that would otherwise read the new state
-    where the call returns the old."""
+    where the call returns the old. Returns the bytes these copies and
+    clones write at each replay."""
     pairs = [(o, i) for o, i in donated.items() if out_leaves[o] is not buffers[i]]
     ptr = lambda t: t.untyped_storage().data_ptr()
     held = {ptr(b) for b in buffers if b is not None}
     written = {ptr(buffers[i]) for _, i in pairs}
+    moved = 0
     for o, y in enumerate(out_leaves):
         if isinstance(y, torch.Tensor) and o not in donated and ptr(y) in written:
             out_leaves[o] = y.clone()
+            moved += y.nbytes
     srcs = [out_leaves[o].clone() if ptr(out_leaves[o]) in held else out_leaves[o]
             for o, _ in pairs]
+    moved += sum(y.nbytes for (o, _), y in zip(pairs, srcs) if y is not out_leaves[o])
     _copy([buffers[i] for _, i in pairs], srcs)
+    return moved + sum(buffers[i].nbytes for _, i in pairs)
+
+
+def boundary_bytes(leaves: List[Any], donated: Dict[int, int],
+                   out_leaves: List[Any]) -> Tuple[int, int, int]:
+    """(copied in, written back, cloned): the bytes a replay moves outside
+    its graph, from a key's leaves, its {output leaf: input leaf} donation
+    pairs and its output leaves. Every tensor leaf is copied into its
+    buffer; each donated output is written back into the caller's tensor,
+    or cloned where another donated tensor shares that tensor's memory
+    (`_write_back`, by the sharing the leaves show); every other tensor
+    output is cloned."""
+    copy_in = sum(x.nbytes for x in leaves if isinstance(x, torch.Tensor))
+    ptrs = collections.Counter(leaves[i].data_ptr() for i in donated.values())
+    write_back = clone = 0
+    for o, y in enumerate(out_leaves):
+        if not isinstance(y, torch.Tensor):
+            continue
+        if o in donated and ptrs[leaves[donated[o]].data_ptr()] == 1:
+            write_back += y.nbytes
+        else:
+            clone += y.nbytes
+    return copy_in, write_back, clone
 
 
 def _write_back(donated: Dict[int, int], leaves: List[Any], out_leaves: List[Any]) -> List[Any]:

@@ -23,6 +23,7 @@ from scaloam_tpu_torch.models import odometry as odometry_mod
 from scaloam_tpu_torch.models import pipeline as pipeline_mod
 from scaloam_tpu_torch.ops import features
 from scaloam_tpu_torch.types import LidarScan, Pose
+from scaloam_tpu_torch.utils import timing
 
 
 class FrontendState(NamedTuple):
@@ -75,7 +76,10 @@ def frontend_step(state: FrontendState, scan: LidarScan, cfg: SlamConfig):
     state is donated: on the card its tensors are updated in place."""
     state, (odom_world, mapped_pose, fire, degenerate, ri_xyz, ri_mask, ri_time) = (
         _step_body(state, scan, cfg))
-    if bool(fire):  # device -> host read of the gate flag
+    with timing.span("frontend.gate_read") as s:
+        s.add("compiled.host_reads", 1)
+        fired = bool(fire)  # device -> host read of the gate flag
+    if fired:
         kf_xyz, kf_mask, kf_ext = pipeline_mod._prepare_keyframe(ri_xyz, ri_mask, ri_time, cfg)
     else:
         # The prep's output length: its capacity, bounded by the input size.
@@ -102,5 +106,6 @@ class FrontEnd:
         self.state = init_state(cfg, self.device)
 
     def step(self, xyz: torch.Tensor, mask: torch.Tensor) -> FrontendOutput:
-        self.state, out = frontend_step(self.state, LidarScan(xyz, mask), self.cfg)
+        with timing.span("frontend.step", scans=1, device=self.device.type == "cuda"):
+            self.state, out = frontend_step(self.state, LidarScan(xyz, mask), self.cfg)
         return out

@@ -37,6 +37,8 @@ from scaloam_tpu_torch.models import scancontext as scm
 from scaloam_tpu_torch.ops import features, icp, se3, voxel
 from scaloam_tpu_torch.ops.kernels import f32ops
 from scaloam_tpu_torch.types import LidarScan, Pose
+from scaloam_tpu_torch.utils import timing
+from scaloam_tpu_torch.utils.metrics import GLOBAL
 
 
 class GateState(NamedTuple):
@@ -252,7 +254,8 @@ class SlamSystem:
             self._add_keyframe(feats, mapped_pose, time)
             loop = self._detect_and_verify_loop()
             if len(self.keyframes) % cfg.pgo.optimize_every_n_keyframes == 0:
-                self.graph = pg.optimize(self.graph, cfg.pgo)
+                with timing.span("backend.optimize"):
+                    self.graph = pg.optimize(self.graph, cfg.pgo)
                 if self._writer is not None:  # per-cycle crash checkpoint
                     self.flush_artifacts()
         result = FrameResult(self.frame_idx, o_out.world, mapped_pose, is_kf, loop)
@@ -270,7 +273,10 @@ class SlamSystem:
 
     def _keyframe_gate(self, pose: Pose) -> bool:
         """The gate with its one 1-byte read a frame."""
-        return bool(self.gate_step(pose))
+        fire = self.gate_step(pose)
+        with timing.span("frontend.gate_read") as s:
+            s.add("compiled.host_reads", 1)
+            return bool(fire)
 
     def _add_keyframe(self, feats, mapped_pose: Pose, time: float) -> None:
         kf_xyz, kf_mask, kf_ext = _prepare_keyframe(
@@ -292,6 +298,7 @@ class SlamSystem:
             mapped_pose = Pose(q, t)
         self.keyframes.append(Keyframe(time=time, frame=self.frame_idx,
                                        dev=(kf_xyz, kf_mask, kf_ext)))
+        GLOBAL.inc("keyframes")
         self.kf_times.append(time)
         self.sc.make_and_save(kf_xyz, kf_mask)
         gps_z, gps_ok = self._match_gps(time)
@@ -301,9 +308,11 @@ class SlamSystem:
     # -- loop closure --------------------------------------------------------
 
     def _detect_and_verify_loop(self):
-        idx, yaw, _ = self.sc.detect_loop_closure_id()
+        with timing.span("backend.sc_detect"):
+            idx, yaw, _ = self.sc.detect_loop_closure_id()
         if idx < 0:
             return None
+        GLOBAL.inc("loops.proposed")
         curr = len(self.keyframes) - 1
         z = self._icp_verify(curr, idx, yaw, poses=self.fetch_pose_tables())
         if z is None:
@@ -314,6 +323,7 @@ class SlamSystem:
         """Add an ICP-verified loop factor."""
         self.graph = pg.add_loop(self.graph, curr, idx, z, n_loops=len(self.loops_found))
         self.loops_found.append((curr, idx))
+        GLOBAL.inc("loops.accepted")
         return (curr, idx)
 
     def fetch_pose_tables(self):
@@ -329,6 +339,26 @@ class SlamSystem:
         The submap is assembled on the host, as in the reference; the
         verification is one compiled program, its result one read. Returns
         the loop measurement X_curr^-1 X_loop, or None if rejected."""
+        with timing.span("backend.icp_assemble"):
+            inputs = self._icp_inputs(curr, loop_idx, yaw, poses)
+        if inputs is None:
+            return None
+        with timing.span("backend.icp_program"):
+            res, _ = self.verify_loop(*inputs)
+            got = torch.cat([res.fitness.reshape(1), res.converged.reshape(1).to(torch.float32),
+                             res.transform.quat, res.transform.trans]).cpu()  # the one read
+        fit, ok = float(got[0]), bool(got[1] > 0)
+        # A degenerate solve gives NaN fitness, which passes a plain `>`.
+        if (not ok or not np.isfinite(fit) or fit > self.cfg.loop.fitness_threshold
+                or not bool(torch.isfinite(got[2:]).all())):
+            return None
+        # C aligns curr-local onto loop-local (C ~= T_loop^-1 T_curr), so the
+        # between measurement X_curr^-1 X_loop is C^-1 (from the device copy).
+        return se3.inverse(res.transform)
+
+    def _icp_inputs(self, curr: int, loop_idx: int, yaw: float, poses):
+        """_icp_verify's host assembly: (source cloud, submap, seeds), or
+        None where either cloud keeps fewer than 100 points."""
         lcfg = self.cfg.loop
         dev = self.backend_device
         poses_q, poses_t = self.fetch_pose_tables() if poses is None else poses
@@ -366,18 +396,7 @@ class SlamSystem:
         ])
         init_t = np.stack([C0[:3, 3].numpy().astype(np.float32), np.zeros(3, np.float32)])
         inits = Pose(_device.upload(init_q, dev), _device.upload(init_t, dev))
-
-        res, _ = self.verify_loop(src, submap, inits)
-        got = torch.cat([res.fitness.reshape(1), res.converged.reshape(1).to(torch.float32),
-                         res.transform.quat, res.transform.trans]).cpu()  # the one read
-        fit, ok = float(got[0]), bool(got[1] > 0)
-        # A degenerate solve gives NaN fitness, which passes a plain `>`.
-        if (not ok or not np.isfinite(fit) or fit > lcfg.fitness_threshold
-                or not bool(torch.isfinite(got[2:]).all())):
-            return None
-        # C aligns curr-local onto loop-local (C ~= T_loop^-1 T_curr), so the
-        # between measurement X_curr^-1 X_loop is C^-1 (from the device copy).
-        return se3.inverse(res.transform)
+        return src, submap, inits
 
     def verify_loop(self, src: np.ndarray, submap: np.ndarray, inits: Pose):
         """icp.verify_loop on the host clouds src and submap, padded and

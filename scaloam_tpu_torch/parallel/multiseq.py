@@ -33,6 +33,7 @@ from scaloam_tpu_torch.ops import features
 from scaloam_tpu_torch.parallel import mesh as mesh_mod
 from scaloam_tpu_torch.parallel.mesh import SEQ_AXIS
 from scaloam_tpu_torch.types import LidarScan, Pose
+from scaloam_tpu_torch.utils import timing
 
 # The warning torch.func.vmap gives where it loops over the batch.
 FALLBACK_WARNING = "There is a performance drop"
@@ -113,7 +114,8 @@ def frame_batch(o_states, m_states, scans_xyz: torch.Tensor, scans_mask: torch.T
     n_local = num_sequences(o_states)
     if scans_xyz.shape[0] != n_local:
         raise ValueError(f"{scans_xyz.shape[0]} scans for {n_local} local sequences")
-    return _frame_batch(o_states, m_states, scans_xyz, scans_mask, cfg)
+    with timing.span("multiseq.frame_batch", scans=n_local, device=scans_xyz.is_cuda):
+        return _frame_batch(o_states, m_states, scans_xyz, scans_mask, cfg)
 
 
 @compiled.jit(static_argnames=("cfg",), donate_argnums=(0, 1))

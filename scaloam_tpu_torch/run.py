@@ -15,7 +15,9 @@ exits with code 2. --async-pipeline runs the threaded real-time runtime
 (runtime/pipeline.py) instead of the sync driver, and its result line adds
 `dropped_frames`. --backend-device N runs the backend (pose graph,
 ScanContext, loop verification) on the card cuda:N; an index past the
-cards present exits with code 2.
+cards present exits with code 2. At exit it prints the process's counters
+(`utils.metrics.GLOBAL`: keyframes, loops proposed and accepted) to
+standard error as one JSON line.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ def main(argv=None) -> int:
     from scaloam_tpu_torch import config, device as device_mod
     from scaloam_tpu_torch.models.pipeline import SlamSystem
     from scaloam_tpu_torch.utils.evaluation import ate_rmse
+    from scaloam_tpu_torch.utils.metrics import GLOBAL
     from scaloam_tpu_torch.utils.timing import StageTimer
 
     try:
@@ -137,7 +140,10 @@ def main(argv=None) -> int:
         # resumable session.
         sys_.attach_session_writer(args.out, live=not args.no_live)
 
-    timer = StageTimer(budget_ms=cfg.runtime.stage_budget_ms)
+    # A frame's sample ends once the front end's card and the backend's have
+    # run its work.
+    timer = StageTimer(budget_ms=cfg.runtime.stage_budget_ms,
+                       devices=(sys_.device, sys_.backend_device))
     n = 0
     t_start = time.time()
     if args.async_pipeline:
@@ -197,6 +203,7 @@ def main(argv=None) -> int:
         result["ate_rmse_optimized"] = round(ate_rmse(est, gt_kf), 4)
         result["ate_rmse_odometry"] = round(ate_rmse(odom, gt_kf), 4)
 
+    print(f"counters: {GLOBAL.json_line()}", file=sys.stderr)
     print(json.dumps(result))
     return 0
 

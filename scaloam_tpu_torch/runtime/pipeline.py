@@ -60,6 +60,7 @@ from scaloam_tpu_torch.models.pipeline import SlamSystem
 from scaloam_tpu_torch.ops import features
 from scaloam_tpu_torch.runtime.queues import BoundedQueue
 from scaloam_tpu_torch.types import LidarScan, Pose
+from scaloam_tpu_torch.utils.metrics import GLOBAL
 
 
 def _record_event(device: torch.device):
@@ -411,6 +412,7 @@ class AsyncSlamPipeline:
                 self.stage_busy["loop_detect"] += time.perf_counter() - t0
                 self.stage_frames["loop_detect"] += 1
                 if idx >= 0:
+                    GLOBAL.inc("loops.proposed")
                     t0 = time.perf_counter()
                     z = self.sys._icp_verify(curr, idx, yaw, poses=poses)
                     if z is not None:

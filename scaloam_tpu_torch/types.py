@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from scaloam_tpu_torch import device as _device
+from scaloam_tpu_torch.utils import timing
 
 
 class Pose(NamedTuple):
@@ -45,12 +46,14 @@ class LidarScan(NamedTuple):
         """Pad/truncate an [n, 3+] float array into a fixed-capacity scan
         on `device` (default `cuda`)."""
         dev = _device.resolve(device)
-        n = min(points.shape[0], capacity)
-        xyz = np.zeros((capacity, 3), dtype=np.float32)
-        xyz[:n] = points[:n, :3]
-        mask = np.zeros((capacity,), dtype=bool)
-        mask[:n] = True
-        return LidarScan(_device.upload(xyz, dev), _device.upload(mask, dev))
+        with timing.span("scan.upload") as s:
+            n = min(points.shape[0], capacity)
+            xyz = np.zeros((capacity, 3), dtype=np.float32)
+            xyz[:n] = points[:n, :3]
+            mask = np.zeros((capacity,), dtype=bool)
+            mask[:n] = True
+            s.add("scan.upload_bytes", xyz.nbytes + mask.nbytes)
+            return LidarScan(_device.upload(xyz, dev), _device.upload(mask, dev))
 
 
 class RangeImage(NamedTuple):

@@ -923,3 +923,76 @@ def test_captured_program_replays_its_eager_outputs(card_inputs, name):
         x for x in leaves[1] if not torch.is_tensor(x)]
     tensors = [[x for x in ls if torch.is_tensor(x)] for ls in leaves]
     chip_smoke.j_compare(torch, name, dict(zip(("captured", "eager", "eager 2"), tensors)))
+
+
+# ---------------------------------------------------------------------------
+# spans at the compile boundary and the front end (utils/timing.py)
+# ---------------------------------------------------------------------------
+
+
+def test_a_captured_replay_records_the_bytes_its_boundary_moves(dev):
+    """A toy step's replay on the card, under the profiler: its spans carry
+    exactly the bytes of compiled.boundary_bytes over its leaves and of the
+    graph's copy of the donated state into its buffers."""
+    from scaloam_tpu_torch import compiled
+    from scaloam_tpu_torch.utils import timing
+
+    @compiled.jit(donate_argnums=(0,))
+    def step(state, x):
+        pos, count = state
+        return (pos + x, count + 1), (pos * 2.0).sum(dim=-1)
+
+    state = (torch.zeros((1000, 3), device=dev), torch.zeros((), dtype=torch.int32, device=dev))
+    x = torch.ones((1000, 3), device=dev)
+    state, _ = step(state, x)  # eager, then captured
+    state, _ = step(state, x)  # a replay with tracing off
+    with timing.span("off"):
+        pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        state, y = step(state, x)
+    recs = {r.name: r for r in timing.records()}
+    leaves = [state[0], state[1], x]
+    copy_in, write_back, clone = compiled.boundary_bytes(
+        leaves, {0: 0, 1: 1}, [state[0], state[1], y])
+    assert (copy_in, write_back, clone) == (12000 + 4 + 12000, 12004, 4000)
+    assert recs["compiled.copy_in"].counts == {"compiled.copy_in_bytes": copy_in}
+    assert recs["compiled.launch"].counts == {"compiled.keep_bytes": 12004}
+    assert recs["compiled.outputs"].counts == {"compiled.write_back_bytes": write_back,
+                                               "compiled.clone_bytes": clone}
+    replay = recs[f"compiled.replay:{__name__}.step"]
+    assert recs["compiled.launch"].parent == replay.id
+    assert torch.equal(state[0], torch.full_like(x, 3.0)) and int(state[1]) == 3
+
+
+def test_frontend_step_on_card_reads_the_gate_once_a_step(dev):
+    from scaloam_tpu_torch.utils import timing
+
+    cfg = _config()
+    world = synthetic.make_world(seed=0, n_boxes=40, extent=50.0)
+    scans, _ = synthetic.simulate_trajectory(world, n_frames=5, speed=1.0, radius=20.0,
+                                             n_azimuth=256, n_scans=cfg.sensor.n_scans,
+                                             lidar_type=cfg.sensor.lidar_type)
+    fe = FrontEnd(cfg, device=dev)
+    for points in scans[:2]:  # both keys captured
+        scan = LidarScan.from_numpy(np.asarray(points), cfg.sensor.max_points, dev)
+        fe.step(scan.xyz, scan.mask)
+    with timing.span("off"):
+        pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        for points in scans[2:]:
+            scan = LidarScan.from_numpy(np.asarray(points), cfg.sensor.max_points, dev)
+            fe.step(scan.xyz, scan.mask)
+        torch.cuda.synchronize()
+    recs = timing.records()
+    steps = [r for r in recs if r.name == "frontend.step"]
+    reads = [r for r in recs if r.name == "frontend.gate_read"]
+    assert len(steps) == len(reads) == 3
+    assert [r.parent for r in reads] == [r.id for r in steps]
+    assert all(r.device_ms > 0 and r.counts == {"scans": 1} for r in steps)
+    replays = [r for r in recs if r.name == "compiled.replay:models.frontend._step_body"]
+    assert len(replays) == 3
+    assert "compiled.capture:models.frontend._step_body" not in {r.name for r in recs}
+    uploads = [r for r in recs if r.name == "scan.upload"]
+    assert [r.counts for r in uploads] == [{"scan.upload_bytes": cfg.sensor.max_points * 13}] * 3
