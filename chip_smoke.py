@@ -144,6 +144,7 @@ GPU it exits non-zero and prints no result.
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import io
 import json
 import multiprocessing
@@ -163,9 +164,10 @@ PREP_FRAME = 3  # frame whose mapping factors feed entry B's check (dense map)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 ROUNDING_KERNELS = ("sq_dist", "sum3_sq", "atan2")  # csrc/f32ops.cu
 # the front end's own kernels that every frame launches (K1 and K2 apart):
-# the 2-NN distances and squared norms of csrc/f32ops.cu, and
-# csrc/ring_azimuth.cu once a frame; csrc/f32ops.cu's atan2 is off the path
-PATH_ROUNDING_KERNELS = ("sq_dist", "sum3_sq")
+# the squared norms of csrc/f32ops.cu, csrc/ring_azimuth.cu once a frame and,
+# from the second frame, csrc/sweep_top2.cu twice (it took the odometry's
+# sq_dist blocks); csrc/f32ops.cu's atan2 is off the path
+PATH_ROUNDING_KERNELS = ("sum3_sq",)
 FRONT_KERNELS = ROUNDING_KERNELS + ("ring_azimuth",)
 # operations of ring_azimuth a point: two atan2f, the fused multiply-add,
 # root and the ring formula (~15)
@@ -756,11 +758,11 @@ def _backend_counters():
 
 def _front_counters():
     """The front end's kernel wrappers besides K1 and K2, by FRONT_KERNELS
-    name."""
-    from scaloam_tpu_torch.ops.kernels import f32ops, ring_azimuth
+    name, and the odometry's sweep."""
+    from scaloam_tpu_torch.ops.kernels import f32ops, ring_azimuth, sweep_top2
 
     return {**{name: getattr(f32ops, name) for name in ROUNDING_KERNELS},
-            "ring_azimuth": ring_azimuth.ring_azimuth}
+            "ring_azimuth": ring_azimuth.ring_azimuth, "sweep_top2": sweep_top2.sweep_top2}
 
 
 def _launch_counts():
@@ -1715,6 +1717,14 @@ def sq_dist_cost(Q, T):
     return (Q + T) * 12 + Q * T * 4, Q * T * 8 + (Q + T) * 5
 
 
+def sweep_cost(Q, T, C):
+    """(bytes, operations) of one sweep of Q queries over T targets in C
+    classes: the points, mask and ring read once, two indices and points a
+    query and class written; per pair and phase the distance (8, as
+    sq_dist's less the norms) and a compare."""
+    return Q * 12 + T * 17 + C * Q * 2 * (8 + 12), 2 * 9 * Q * T
+
+
 # Each sensor's ring bounds (degrees of elevation) as the reference's
 # _ring_id draws them, and its ring count.
 RING_BOUNDS = {
@@ -1778,9 +1788,12 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
     (ops/f32.py) and csrc/ring_azimuth.cu against its plain version
     (ops/kernels/ring_azimuth.py) on the card, bit for bit, on the largest
     input of each that one FrontEnd step of frame 1 (after frame 0) passes,
-    captured as the step passes it: sq_dist's largest distance block,
-    sum3_sq's largest batch of vectors, ring_azimuth's points; atan2 (off
-    the path) on those points' azimuths. Also sq_dist on a tie-heavy block
+    captured as the step passes it: sq_dist on the larger odometry sweep's
+    queries and first tile of targets (the block it wrote a tile before
+    csrc/sweep_top2.cu took the sweeps), sum3_sq's largest batch of
+    vectors, ring_azimuth's points; atan2 (off the path) on those points'
+    azimuths. The two sweeps equal their plain version (the former
+    composition) bit for bit, the larger timed beside it captured. Also sq_dist on a tie-heavy block
     of integer points, sum3_sq on integer vectors, atan2 on the quadrants,
     axes and signed zeros and ring_azimuth on the frame with its first rows
     on the sensor's ring bounds, and each under torch.func.vmap over those
@@ -1791,18 +1804,20 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
     library_ms, shape}}."""
     from scaloam_tpu_torch import compiled
     from scaloam_tpu_torch.models.frontend import FrontEnd
-    from scaloam_tpu_torch.ops import f32
-    from scaloam_tpu_torch.ops.kernels import f32ops, ring_azimuth
+    from scaloam_tpu_torch.ops import f32, voxel
+    from scaloam_tpu_torch.ops.kernels import f32ops, ring_azimuth, sweep_top2
 
     fe = FrontEnd(cfg, device=dev)
     with compiled.disabled():  # a captured step's replay runs no spy
         fe.step(dev_scans[0].xyz, dev_scans[0].mask)
     kernels = _front_counters()
-    spied = {name: (ring_azimuth if name == "ring_azimuth" else f32ops) for name in kernels}
+    spied = {name: {"ring_azimuth": ring_azimuth, "sweep_top2": sweep_top2}.get(name, f32ops)
+             for name in kernels}
     captured = {name: [] for name in kernels}
 
     def spy(name):
-        def call(*args):
+        def call(*args, **kw):
+            args = inspect.signature(kernels[name]).bind(*args, **kw).args
             captured[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
             return kernels[name](*args)
         return call
@@ -1815,13 +1830,17 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
     finally:
         for name, mod in spied.items():
             setattr(mod, name, kernels[name])
-    if captured["atan2"] or len(captured["ring_azimuth"]) != 1:
-        raise AssertionError(f"{tag}front-end step: {len(captured['atan2'])} atan2 calls, "
-                             f"{len(captured['ring_azimuth'])} ring_azimuth calls; want 0 and 1")
-    # the most outputs: sq_dist's Q x T, sum3_sq's element count
-    size = lambda args: args[0].shape[0] * args[1].shape[0] if args[0].dim() == 2 and len(
-        args) == 2 else args[0].numel()
-    (q, t), (v,) = (max(captured[name], key=size) for name in ("sq_dist", "sum3_sq"))
+    if (captured["atan2"] or captured["sq_dist"] or len(captured["ring_azimuth"]) != 1
+            or len(captured["sweep_top2"]) != 2):
+        raise AssertionError(
+            f"{tag}front-end step: {len(captured['atan2'])} atan2, {len(captured['sq_dist'])} "
+            f"sq_dist, {len(captured['ring_azimuth'])} ring_azimuth and "
+            f"{len(captured['sweep_top2'])} sweep_top2 calls; want 0, 0, 1 and 2")
+    # the most outputs: the larger sweep's Q x T (sq_dist's block: the
+    # sweep's first tile), sum3_sq's element count
+    sweep = max(captured["sweep_top2"], key=lambda args: args[0].shape[0] * args[1].shape[0])
+    q, t = sweep[0], sweep[1][:voxel.fit_tile(sweep[1].shape[0], sweep[6])]
+    (v,) = max(captured["sum3_sq"], key=lambda args: args[0].numel())
     pts, lidar, n_scans = captured["ring_azimuth"][0]
     y, x = pts[:, 1].contiguous(), pts[:, 0].contiguous()
     Q, T = q.shape[0], t.shape[0]
@@ -1895,6 +1914,27 @@ def rounding_checks(torch, dev, cfg, dev_scans, tag=""):
     log(f"{tag}ring_azimuth {[P, 3]} ({lidar}): kernel {r['ms']:.4f} ms + the azimuths' gather "
         f"{r['gather_ms']:.4f} ms, the sequence it replaced captured {r['replaced_graph_ms']:.4f} "
         f"ms")
+    # the odometry's two sweeps (csrc/sweep_top2.cu) on the step's inputs
+    # against their plain version, the former composition, bit for bit; the
+    # larger timed beside that composition captured
+    for args in captured["sweep_top2"]:
+        got, want = sweep_top2.sweep_top2(*args), sweep_top2.sweep_top2_plain(*args)
+        shape = f"{args[0].shape[0]} x {args[1].shape[0]}"
+        if not (torch.equal(got[0], want[0]) and _equal_bits(torch, got[1], want[1])):
+            raise AssertionError(f"{tag}sweep_top2 {shape}: differs from the plain version")
+        log(f"{tag}sweep_top2 {shape} (want_same {args[5]}): kernel == plain bit for bit")
+    call = lambda: sweep_top2.sweep_top2(*sweep)
+    Q, T = sweep[0].shape[0], sweep[1].shape[0]
+    r = rows["sweep_top2"] = dict(
+        max_abs_err=0.0, ms=graph_ms(torch, call, 100), eager_ms=cuda_ms(torch, call, 200),
+        plain_ms=cuda_ms(torch, lambda: sweep_top2.sweep_top2_plain(*sweep), 5), library_ms=None,
+        replaced_graph_ms=graph_ms(torch, lambda: sweep_top2.sweep_top2_plain(*sweep), 10),
+        shape=[[Q, 3], [T, 3]])
+    r["bound_ms"], r["bound_by"] = bound_ms(*sweep_cost(Q, T, 2 + sweep[5]))
+    log(f"{tag}sweep_top2 times {r['shape']}: kernel {r['ms']:.4f} ms (eager call "
+        f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, the composition it replaced "
+        f"captured {r['replaced_graph_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']})")
     return rows
 
 
@@ -2463,7 +2503,7 @@ def frontend_drive(torch, dev, cfg, dev_scans, gt, tag=""):
     ms_frame = (time.perf_counter() - t_start) * 1e3 / (n - WARM_FRAMES)
     launches = _launch_counts()
     want = {"K1": n, "K2 A": n - 1, "K2 B": cfg.mapping.outer_iterations * n,
-            "ring_azimuth": n, "atan2": 0}
+            "ring_azimuth": n, "atan2": 0, "sq_dist": 0, "sweep_top2": 2 * (n - 1)}
     _check_launches(f"{tag}front end ", launches, want)
     # The frames' features and K1's picks for (i), from the eager features
     # program on the same scans: a captured program's replay runs no spy
@@ -2793,11 +2833,10 @@ def _h_batched(torch, cfg, xyz, mask):
             t0 = time.perf_counter()
         _zero_launches()
         o, m, o_pose, m_pose = multiseq.frame_batch(o, m, xyz[f], mask[f], cfg)
-        want = {"K1": 1, "K2 A": int(f > 0), "K2 B": cfg.mapping.outer_iterations,
-                "ring_azimuth": 1, "atan2": 0}
         # the first frame's odometry sweeps no candidates
-        _check_launches(f"(h) B={B} frame {f}: ", _launch_counts(), want,
-                        PATH_ROUNDING_KERNELS if f > 0 else ("sum3_sq",))
+        want = {"K1": 1, "K2 A": int(f > 0), "K2 B": cfg.mapping.outer_iterations,
+                "ring_azimuth": 1, "atan2": 0, "sq_dist": 0, "sweep_top2": 2 * int(f > 0)}
+        _check_launches(f"(h) B={B} frame {f}: ", _launch_counts(), want)
         odom.append(_qt(o_pose, torch))
         mapped.append(_qt(m_pose, torch))
         # the states are donated (updated in place by the next frame)
@@ -3676,7 +3715,9 @@ def _main(torch, drive, skewed, presets, mulran) -> int:
             ("sum3_sq", f32_src, "scaloam_tpu/ops/gridmap.py:230"),
             ("atan2", f32_src, "scaloam_tpu/ops/features.py:52"),
             ("ring_azimuth", "scaloam_tpu_torch/csrc/ring_azimuth.cu",
-             "scaloam_tpu/ops/features.py:49")):
+             "scaloam_tpu/ops/features.py:49"),
+            ("sweep_top2", "scaloam_tpu_torch/csrc/sweep_top2.cu",
+             "scaloam_tpu/models/odometry.py:68")):
         row = rows[key]
         kernels.append({
             "name": key, "route": "cuda", "source": source, "replaces": replaces,

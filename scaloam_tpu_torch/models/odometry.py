@@ -24,8 +24,8 @@ import torch
 
 from scaloam_tpu_torch import compiled, device as _device
 from scaloam_tpu_torch.config import SlamConfig
-from scaloam_tpu_torch.ops import correspond, gn, residuals, se3, voxel
-from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry
+from scaloam_tpu_torch.ops import gn, residuals, se3
+from scaloam_tpu_torch.ops.kernels import f32ops, gn_odometry, sweep_top2
 from scaloam_tpu_torch.types import FeatureCloud, Pose, ScanFeatures
 
 
@@ -72,23 +72,18 @@ def _sweep_candidates(rel: Pose, feats: ScanFeatures, state: OdometryState,
     """Full-cloud correspondence sweeps at the warm-start pose, two
     candidates deep per class (corners: any / other-ring; surfs: any /
     same-ring / other-ring), each [Q, 2, 3]. The 1-NN's ring (the
-    same/other boundary) is frozen at the sweep pose."""
+    same/other boundary) is frozen at the sweep pose. One sweep_top2
+    launch a sweep on the card: the reference's knn2_payload over tiles of
+    8192, then ring_constrained_nn2_pts over tiles of 4096."""
     ocfg = cfg.odometry
 
     def sweep(q_cloud, t_cloud, want_same):
         s = q_cloud.rel_time if ocfg.distortion else None
         q = residuals.transform_points(rel, q_cloud.xyz, s=s)
-        iota = torch.arange(t_cloud.xyz.shape[0], dtype=torch.float32, device=q.device)
-        payload = torch.cat([t_cloud.xyz, t_cloud.ring[:, None], iota[:, None]], dim=1)
-        _, P = voxel.knn2_payload(q, q_cloud.mask, t_cloud.xyz, t_cloud.mask, payload, tile=8192)
-        any_pts = P[:, :, :3].contiguous()
-        ring_j = P[:, 0, 3]
-        excl = P[:, 0, 4].to(torch.int64)  # exact: index < 2^24
-        _, p_same, _, p_other = correspond.ring_constrained_nn2_pts(
-            q, q_cloud.mask, ring_j, excl, t_cloud.xyz, t_cloud.mask,
-            t_cloud.ring, ocfg.nearby_scan, tile=4096, want_same=want_same,
-        )
-        return (any_pts, p_same, p_other) if want_same else (any_pts, p_other)
+        _, pts = sweep_top2.sweep_top2(q, t_cloud.xyz, t_cloud.mask, t_cloud.ring,
+                                       ocfg.nearby_scan, want_same, tile_any=8192,
+                                       tile_ring=4096)
+        return tuple(pts)
 
     corner_cand = sweep(feats.sharp, state.last_corner, want_same=False)
     surf_cand = sweep(feats.flat, state.last_surf, want_same=True)

@@ -5,9 +5,11 @@ For each query, with the ring of its 1-NN known, find the nearest targets
 on the SAME ring (excluding the 1-NN itself) and on a DIFFERENT ring within
 +-`nearby` rings, over target tiles so only one [Q, tile] distance block
 lives at a time. Candidates rank by |q|^2 + |t|^2 - 2 q.t like the
-reference's, and ties go to the lowest target index. The odometry calls
-`ring_constrained_nn2_pts` (winner points); `ring_constrained_nn` and
-`ring_constrained_nn2` return target indices.
+reference's, and ties go to the lowest target index.
+`ring_constrained_nn2_pts` returns winner points, `ring_constrained_nn` and
+`ring_constrained_nn2` target indices; `ring_nn2_best` is the first's
+running top-2s, which the plain version of the odometry's sweep kernel
+(ops/kernels/sweep_top2.py) takes.
 """
 
 from __future__ import annotations
@@ -91,6 +93,23 @@ def ring_constrained_nn2_pts(
     p_other [Q, 2, 3]): ascending squared distances (BIG when none) and
     the winner points. want_same=False (the corner pass) skips the
     same-ring search: its distances are then BIG and its points zero."""
+    best_s, best_o = ring_nn2_best(query, ring_ref, exclude_idx, target, target_mask,
+                                   target_ring, nearby, tile, want_same)
+
+    def finish(best):
+        b1d, b1i, b2d, b2i = best
+        dd = torch.stack([b1d, b2d], dim=1)
+        dd = torch.where(query_mask[:, None], torch.clamp(dd, min=0.0), voxel.BIG)
+        return dd, voxel.gather_rows(target, torch.stack([b1i, b2i], dim=1))
+
+    return finish(best_s) + finish(best_o)
+
+
+def ring_nn2_best(query, ring_ref, exclude_idx, target, target_mask, target_ring,
+                  nearby: float, tile: int = 4096, want_same: bool = True):
+    """ring_constrained_nn2_pts's running top-2s (best_same, best_other),
+    each (d1, i1, d2, i2) [Q] as voxel.knn2_best gives them; best_same
+    stays empty when not want_same."""
     tile = voxel.fit_tile(target.shape[0], tile)
     Q = query.shape[0]
     dev = query.device
@@ -109,11 +128,4 @@ def ring_constrained_nn2_pts(
             best_s = voxel.merge_top2(best_s, voxel.tile_top2(d_s, t0))
         d_o = torch.where(base & other, d, voxel.BIG)
         best_o = voxel.merge_top2(best_o, voxel.tile_top2(d_o, t0))
-
-    def finish(best):
-        b1d, b1i, b2d, b2i = best
-        dd = torch.stack([b1d, b2d], dim=1)
-        dd = torch.where(query_mask[:, None], torch.clamp(dd, min=0.0), voxel.BIG)
-        return dd, voxel.gather_rows(target, torch.stack([b1i, b2i], dim=1))
-
-    return finish(best_s) + finish(best_o)
+    return best_s, best_o

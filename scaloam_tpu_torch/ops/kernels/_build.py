@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("selection", "gn_odometry", "f32ops", "kabsch", "segment_sum", "hess_matvec",
-           "kabsch_step", "ring_azimuth", "chain_solve")
+           "kabsch_step", "ring_azimuth", "chain_solve", "sweep_top2")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -386,17 +386,24 @@ def pad_to_multiple(xyz: torch.Tensor, mask: torch.Tensor, multiple: int):
     )
 
 
-def knn2_payload(query, query_mask, target, target_mask, payload, tile: int = 8192):
-    """2-NN over target tiles; returns (d [Q, 2] ascending squared
-    distances, BIG for masked queries; P [Q, 2, C] the winners' payload
-    rows). The [Q, tile] distance block is the only large temporary."""
+def knn2_best(query, target, target_mask, tile: int = 8192):
+    """knn2_payload's running top-2 (d1 [Q], i1 [Q], d2 [Q], i2 [Q]) over
+    target tiles: squared distances (BIG where no target passed) before any
+    query mask, and target indices (-1 until a tile fills the slot)."""
     tile = fit_tile(target.shape[0], tile)
     best = empty_top2(query.shape[0], query.device)
     for t0 in range(0, target.shape[0], tile):
         d = f32ops.sq_dist(query, target[t0 : t0 + tile])
         d = torch.where(target_mask[None, t0 : t0 + tile], d, BIG)
         best = merge_top2(best, tile_top2(d, t0))
-    b1d, b1i, b2d, b2i = best
+    return best
+
+
+def knn2_payload(query, query_mask, target, target_mask, payload, tile: int = 8192):
+    """2-NN over target tiles; returns (d [Q, 2] ascending squared
+    distances, BIG for masked queries; P [Q, 2, C] the winners' payload
+    rows). The [Q, tile] distance block is the only large temporary."""
+    b1d, b1i, b2d, b2i = knn2_best(query, target, target_mask, tile)
     d = torch.stack([b1d, b2d], dim=1)
     d = torch.where(query_mask[:, None], torch.clamp(d, min=0.0), BIG)
     return d, gather_rows(payload, torch.stack([b1i, b2i], dim=1))

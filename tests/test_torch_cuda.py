@@ -15,7 +15,8 @@ problem runs the same code in its own blocks or cluster, and meet the
 same tolerances against the plain version; multiseq.frame_batch on the
 card launches each kernel once a batched frame. The rounding kernels
 (csrc/f32ops.cu: sq_dist, sum3_sq, atan2) equal their plain versions bit
-for bit, on the card and on the CPU, and vmapped in one launch. The
+for bit, on the card and on the CPU, and vmapped in one launch; so does
+odometry's 2-NN sweep (csrc/sweep_top2.cu), in its indices and points. The
 Kabsch kernel (csrc/kabsch.cu) within 1e-6 of its plain version on the
 same batches (the same IEEE operations in the same order), the segment
 sum (csrc/segment_sum.cu) bit for bit. The fused kernels equal their
@@ -322,8 +323,10 @@ def test_batched_gn_prepared_matches_per_problem_and_plain(dev):
 def test_frame_batch_on_card_tracks_cpu_with_one_launch_each(dev):
     """multiseq.frame_batch over two sequences on the card: one launch of
     K1, K2 A (from the second frame) and outer_iterations of K2 B a
-    batched frame; poses within 5e-4 / 5e-3 m of the same batch on the
+    batched frame, two of the odometry's sweep (from the second frame) and
+    none of sq_dist; poses within 5e-4 / 5e-3 m of the same batch on the
     CPU."""
+    from scaloam_tpu_torch.ops.kernels import f32ops, sweep_top2
     from scaloam_tpu_torch.parallel import multiseq
 
     cfg = _config()
@@ -335,8 +338,9 @@ def test_frame_batch_on_card_tracks_cpu_with_one_launch_each(dev):
         poses = {}
         for d in (dev, "cpu"):
             scans = [LidarScan.from_numpy(seqs[s][f], cfg.sensor.max_points, d) for s in range(2)]
-            counts = (selection.select_features.launches, gn_odometry.associate_and_solve.launches,
-                      gn_odometry.gn_solve_prepared.launches)
+            counters = (selection.select_features, gn_odometry.associate_and_solve,
+                        gn_odometry.gn_solve_prepared, sweep_top2.sweep_top2, f32ops.sq_dist)
+            counts = [c.launches for c in counters]
             o, m, odom, mapped = multiseq.frame_batch(
                 *states[d], torch.stack([s.xyz for s in scans]),
                 torch.stack([s.mask for s in scans]), cfg)
@@ -344,10 +348,8 @@ def test_frame_batch_on_card_tracks_cpu_with_one_launch_each(dev):
             poses[str(d)] = (odom, mapped)
             if d == dev:
                 torch.cuda.synchronize()
-                assert (selection.select_features.launches - counts[0],
-                        gn_odometry.associate_and_solve.launches - counts[1],
-                        gn_odometry.gn_solve_prepared.launches - counts[2]) == (
-                            1, int(f > 0), cfg.mapping.outer_iterations)
+                assert tuple(c.launches - n for c, n in zip(counters, counts)) == (
+                    1, int(f > 0), cfg.mapping.outer_iterations, 2 * int(f > 0), 0)
         for a, b in zip(poses[str(dev)], poses["cpu"]):
             qa = a.quat.cpu()
             qa = torch.where((qa * b.quat).sum(-1, keepdim=True) < 0, -qa, qa)
@@ -402,6 +404,98 @@ def test_rounding_kernels_fold_a_vmapped_batch_into_one_launch(dev):
         for b in range(2):
             one = fn(*(a[b] if d == 0 else a for a, d in zip(args, dims)))
             assert torch.equal(got[b], one)
+
+
+# ---------------------------------------------------------------------------
+# odometry's 2-NN sweep (csrc/sweep_top2.cu): one launch a sweep
+# ---------------------------------------------------------------------------
+
+
+def _sweep_args(dev, name, seed=0):
+    """A case of tests/sweep_cases.py on the card: (query, target, mask,
+    ring), nearby and the tiles as the odometry asks for them."""
+    from sweep_cases import sweep_case
+
+    c = sweep_case(name, seed)
+    args = [torch.tensor(c[k], device=dev) for k in ("query", "target", "mask", "ring")]
+    return args, c["nearby"], c["tile_any"], c["tile_ring"]
+
+
+def _sweep_equal(got, want):
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1].cpu().view(torch.int32), want[1].cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("want_same", [True, False])
+@pytest.mark.parametrize("name", ["surf", "corner", "odd", "ties", "masked_tiles", "empty"])
+def test_sweep_top2_kernel_matches_plain(dev, name, want_same):
+    """The sweep kernel equals its plain version (the former composition:
+    sq_dist blocks, masks, tile_top2, merge_top2) bit for bit in the
+    indices and the points gathered, on the card and, at the small shapes,
+    on the CPU; one launch a call. The shapes: the less-flat and less-sharp
+    sweeps at the presets' capacities, a cloud no multiple of 8192, and the
+    tie, tile-mask and empty cases."""
+    from sweep_cases import SMALL
+    from scaloam_tpu_torch.ops import voxel
+    from scaloam_tpu_torch.ops.kernels import sweep_top2
+
+    args, nearby, tile_any, tile_ring = _sweep_args(dev, name)
+    T = args[1].shape[0]
+    tiles = (voxel.fit_tile(T, tile_any), voxel.fit_tile(T, tile_ring))
+    before = sweep_top2.sweep_top2.launches
+    got = sweep_top2.sweep_top2(*args, nearby, want_same, tile_any, tile_ring)
+    torch.cuda.synchronize()
+    assert sweep_top2.sweep_top2.launches == before + 1
+    _sweep_equal(got, sweep_top2.sweep_top2_plain(*args, nearby, want_same, *tiles))
+    if name in SMALL:
+        cpu = sweep_top2.sweep_top2_plain(*(a.cpu() for a in args), nearby, want_same, *tiles)
+        _sweep_equal(got, cpu)
+    if name == "empty":
+        assert bool((got[0] == -1).all()) and not bool(got[1].any())
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("name", ["odd", "ties", "masked_tiles"])
+def test_sweep_top2_kernel_matches_plain_at_every_lane_count(dev, monkeypatch, name, lanes):
+    """Each split of a query's targets over lanes (the kernel picks one
+    from the problem count) merges the lanes' winners to the plain
+    version's, bit for bit."""
+    from scaloam_tpu_torch.ops import voxel
+    from scaloam_tpu_torch.ops.kernels import sweep_top2
+
+    monkeypatch.setattr(sweep_top2, "_lanes", lambda problems, device: lanes)
+    args, nearby, tile_any, tile_ring = _sweep_args(dev, name, seed=lanes)
+    T = args[1].shape[0]
+    tiles = (voxel.fit_tile(T, tile_any), voxel.fit_tile(T, tile_ring))
+    for want_same in (True, False):
+        got = sweep_top2.sweep_top2(*args, nearby, want_same, tile_any, tile_ring)
+        _sweep_equal(got, sweep_top2.sweep_top2_plain(*args, nearby, want_same, *tiles))
+
+
+@pytest.mark.parametrize("name", ["surf", "corner"])
+def test_sweep_top2_folds_a_vmapped_batch_into_one_launch(dev, name):
+    """Under torch.func.vmap at B = 8 (the fleet's sequences) the sweep
+    launches once, equal to a launch a problem and to the plain version."""
+    from scaloam_tpu_torch.ops import voxel
+    from scaloam_tpu_torch.ops.kernels import sweep_top2
+
+    parts = [_sweep_args(dev, name, seed=s) for s in range(8)]
+    args = [torch.stack(a) for a in zip(*(p[0] for p in parts))]
+    _, nearby, tile_any, tile_ring = parts[0]
+    want_same = name == "surf"
+    before = sweep_top2.sweep_top2.launches
+    got = torch.func.vmap(lambda *a: sweep_top2.sweep_top2(
+        *a, nearby, want_same, tile_any, tile_ring))(*args)
+    torch.cuda.synchronize()
+    assert sweep_top2.sweep_top2.launches == before + 1
+    T = args[1].shape[1]
+    tiles = (voxel.fit_tile(T, tile_any), voxel.fit_tile(T, tile_ring))
+    for b in range(8):
+        one = sweep_top2.sweep_top2(*(a[b] for a in args), nearby, want_same, tile_any,
+                                    tile_ring)
+        _sweep_equal((got[0][b], got[1][b]), one)
+        _sweep_equal(one, sweep_top2.sweep_top2_plain(*(a[b] for a in args), nearby,
+                                                      want_same, *tiles))
 
 
 # ---------------------------------------------------------------------------
